@@ -1,0 +1,649 @@
+#!/usr/bin/env python3
+"""Drive the kzg_torch port on one NVIDIA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result:
+
+1. device: the card's name and power limit (nvidia-smi).
+2. build: every kernel of kzg_torch/csrc, compiled with nvcc (one process per
+   source, in parallel) into build/kzg_torch_kernels/.
+3. kernels: each kernel against its plain PyTorch version on the card on
+   seeded inputs with the exceptional cases (P == Q, P == -Q and infinity
+   lanes, an odd C < 64 scan with a P == Q step, every K4 mode); the expected
+   result is bit-identical output.
+4. paths, each driven through the entry points with the launch counts set to
+   0 just before and read just after, and every call of a kernel wrapper
+   logged with its shapes:
+   - main: the fixed-base commit at n = 2^20: DeviceSRS.fixed_tables() and
+     the first Polynomial.commit. Its SRS points s^i G1 are made beforehand
+     (the port's double-and-add ladder and to_affine, not counted).
+   - batched: the commit below FIXED_BASE_THRESHOLD (n = 8192), which runs
+     the batched double-and-add MSM, the one path that launches g1_madd.
+   Each result must equal the host oracle (sum a_i s^i mod r) G1, and each
+   kernel of a path must have launched in its run.
+5. replay: every logged call again at its shapes on seeded inputs, kernel
+   against plain version (bit-identical), then timed by CUDA events. A
+   kernel's ms, plain_ms and bound are sums over the calls its path made.
+   The exact scan, which no path launches here, is checked and timed at the
+   main path's scan shape beside the fast one.
+6. profile: one warm 2^20 commit under torch.profiler, device time by kernel.
+7. a line {"kernels": [...]}, then the last line {"ok": true, "device": ...}.
+
+Bounds: the larger of bytes moved / 3.35 TB/s (H100 SXM HBM3) and 32-bit
+integer multiply-adds / 16.7 T/s (132 SMs x 64 IMAD per clock x 1.98 GHz, the
+H100 SXM boost clock; CUDA C++ Programming Guide, arithmetic instruction
+throughput for compute capability 9.0). A 32x32->64 multiply-add counts as
+two 32-bit multiply-adds, so an Fp Montgomery multiply (12 words, CIOS) is
+2 * (2 * 12^2 + 12) = 600 and an Fr one 2 * (2 * 8^2 + 8) = 272. A point add
+is 16 Fp multiplies, a mixed add 11, a doubling 7; a prefix sum of W points
+needs W - 1 adds (W - 2 when exclusive), whatever order a kernel adds in.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import math
+import os
+import random
+import subprocess
+import sys
+import time
+
+SEED = 20240521
+LOG_N = 20
+BATCHED_N = 8192  # below the fixed-base threshold: the batched-affine commit
+CHECK_LANES = 1 << 16  # lanes of the exceptional-case checks of phase 3
+PLAIN_CHUNK = 1 << 20  # lanes per plain call in the replays: bounds its temporaries
+HBM_BYTES_PER_S = 3.35e12
+INT_MAD_PER_S = 132 * 64 * 1.98e9
+FP_MUL_OPS = 2 * (2 * 12 * 12 + 12)
+FR_MUL_OPS = 2 * (2 * 8 * 8 + 8)
+FP_BYTES = 48
+
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "mont_mul_fp": ("kzg_torch/csrc/mont_mul.cu", "kzg_tpu/ops/pallas_field.py:355"),
+    "mont_mul_fr": ("kzg_torch/csrc/mont_mul.cu", "kzg_tpu/ops/pallas_field.py:355"),
+    "g1_double": ("kzg_torch/csrc/g1_point.cu", "kzg_tpu/ops/pallas_curve.py:260"),
+    "g1_add": ("kzg_torch/csrc/g1_point.cu", "kzg_tpu/ops/pallas_curve.py:260"),
+    "g1_madd": ("kzg_torch/csrc/g1_point.cu", "kzg_tpu/ops/pallas_curve.py:260"),
+    "scan_madd": ("kzg_torch/csrc/scan_madd.cu", "kzg_tpu/ops/pallas_msm25.py:360"),
+    "hs_scan_points": ("kzg_torch/csrc/hs_scan.cu", "kzg_tpu/ops/pallas_msm.py:280"),
+}
+MAIN = f"fixed-base commit 2^{LOG_N} (table build + first commit)"
+BATCHED = f"batched-affine commit {BATCHED_N}"
+# the kernels each path must launch
+PATH_KERNELS = {
+    MAIN: {"mont_mul_fp", "mont_mul_fr", "g1_double", "g1_add", "scan_madd", "hs_scan_points"},
+    BATCHED: {"mont_mul_fr", "g1_double", "g1_add", "g1_madd"},
+}
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT_MAD_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Ctx:
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.device = device
+        self.gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def sync(self):
+        if self.device.type == "cuda":
+            self.torch.cuda.synchronize()
+
+    def time_cuda(self, fn, reps: int = 5) -> float:
+        """Mean ms of fn over reps runs, by CUDA events, after one warm-up."""
+        torch = self.torch
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def time_once(self, fn) -> tuple[float, object]:
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        self.sync()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def rand_field(self, F, n: int):
+        """n uniformly random canonical values as (L, n) int32 words: every
+        word random, the top one kept below the modulus' top word."""
+        torch = self.torch
+        w = torch.randint(-(1 << 31), 1 << 31, (F.L, n), dtype=torch.int32,
+                          device=self.device, generator=self.gen)
+        w[-1] = torch.randint(0, F.modulus >> (32 * (F.L - 1)), (n,), dtype=torch.int32,
+                              device=self.device, generator=self.gen)
+        return w
+
+
+def same(ctx, a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return all(same(ctx, x, y) for x, y in zip(a, b)) and len(a) == len(b)
+    return bool(ctx.torch.equal(a, b))
+
+
+def max_abs_err(ctx, a, b) -> int:
+    """Largest |difference| of the u32 words (0 when bit-identical)."""
+    if isinstance(a, (tuple, list)):
+        return max(max_abs_err(ctx, x, y) for x, y in zip(a, b))
+    torch = ctx.torch
+    ua = a.to(torch.int64) & 0xFFFFFFFF
+    ub = b.to(torch.int64) & 0xFFFFFFFF
+    return int((ua - ub).abs().max().item()) if ua.numel() else 0
+
+
+def check(ctx, label, got, want) -> int:
+    err = max_abs_err(ctx, got, want)
+    ok = same(ctx, got, want)
+    print(f"  {label}: {'bit-identical' if ok else 'MISMATCH'} (max word error {err})", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: kernel differs from its plain version")
+    return err
+
+
+def special_points(ctx, n: int):
+    """Jacobian p, q (12, n) with exceptional lanes first when n >= 20: lanes
+    0-3 P == Q, 4-7 P == -Q, 8-11 P at infinity, 12-15 Q at infinity, 16-19
+    both; the rest random canonical coordinates (the formulas take any
+    canonical input; kernel and plain version must agree on all of them)."""
+    from kzg_torch.ops.field import FP
+
+    p = [ctx.rand_field(FP, n) for _ in range(3)]
+    q = [ctx.rand_field(FP, n) for _ in range(3)]
+    if n < 20:
+        return tuple(p), tuple(q)
+    one = FP.one_like(p[2][:, :20])
+    p[2][:, :20] = one
+    q[2][:, :20] = one
+    for c in range(3):
+        q[c][:, 0:4] = p[c][:, 0:4]
+    q[0][:, 4:8] = p[0][:, 4:8]
+    q[1][:, 4:8] = FP.neg(p[1][:, 4:8])
+    p[2][:, 8:12] = 0
+    q[2][:, 12:16] = 0
+    p[2][:, 16:20] = 0
+    q[2][:, 16:20] = 0
+    return tuple(p), tuple(q)
+
+
+def hs_plain(ctx, pts, reverse: bool, exclusive: bool):
+    """K4's plain version on (12, R, W) coordinates, exclusive by a shift."""
+    torch = ctx.torch
+    from kzg_torch.ops import scans
+
+    out = scans.hs_scan_points_plain(*pts, reverse=reverse)
+    if not exclusive:
+        return out
+    if reverse:
+        return tuple(torch.cat([c[..., 1:], torch.zeros_like(c[..., :1])], -1) for c in out)
+    return tuple(torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], -1) for c in out)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: each kernel against its plain version, exceptional cases
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels(ctx):
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops import field as fld
+    from kzg_torch.ops import scans
+    from kzg_torch.ops.field import FP, FR
+
+    n = CHECK_LANES
+    for F in (FP, FR):
+        a, b = ctx.rand_field(F, n), ctx.rand_field(F, n)
+        edge = F.tensor([0, 1, F.modulus - 1], ctx.device)
+        a[:, :3] = edge
+        b[:, :3] = edge.flip(1)
+        check(ctx, f"mont_mul {F.name} (L={F.L}, n={n}, 0 / 1 / N-1 lanes)",
+              fld.mont_mul(a, b, F), fld.mont_mul_plain(a, b, F))
+
+    p, q = special_points(ctx, n)
+    qa = (q[0], q[1])
+    check(ctx, f"g1_double (n={n}, inf lanes)", cv.g1_double(p), cv.g1_double_plain(p))
+    check(ctx, f"g1_add (n={n}, P == Q / P == -Q / inf lanes)", cv.g1_add(p, q),
+          cv.g1_add_plain(p, q))
+    check(ctx, f"g1_madd (n={n}, P == Q / P == -Q / inf lanes)", cv.g1_madd(p, qa),
+          cv.g1_madd_plain(p, qa))
+    got, need = cv.g1_madd(p, qa, fast=True)
+    want, want_need = cv.g1_madd_plain(p, qa, fast=True)
+    check(ctx, f"g1_madd fast (n={n})", (got, need), (want, want_need))
+    if not bool(need[:4].all()) or bool(need[4:].any()):
+        raise AssertionError("madd fast: the needs-double mask is not set exactly on P == Q lanes")
+
+    # K3 on an adversarial stream: odd C < 64, a P == Q step in chunks 0 and 5
+    m_small, c_small = 8, 37
+    xs = ctx.rand_field(FP, m_small * c_small).view(FP.L, m_small, c_small).permute(1, 0, 2)
+    ys = ctx.rand_field(FP, m_small * c_small).view(FP.L, m_small, c_small).permute(1, 0, 2)
+    for c in (0, 5):
+        xs[1, :, c] = xs[0, :, c]
+        ys[1, :, c] = ys[0, :, c]
+    for fast in (True, False):
+        got, flag = scans.scan_prefix_madd(xs, ys, fast=fast)
+        want, want_flag = scans.scan_prefix_madd_plain(xs, ys, fast=fast)
+        check(ctx, f"scan_madd {'fast' if fast else 'exact'} (m={m_small}, C={c_small}, P == Q)",
+              got, want)
+        if fast and not (bool(flag) and bool(want_flag)):
+            raise AssertionError("scan fast: the needs-double flag was not raised")
+
+    # K4: all four modes at W = 32 and W = 32768 (R = 3 and 1 rows)
+    for R, W in ((3, 32), (1, 32768)):
+        pts = [ctx.rand_field(FP, R * W).view(FP.L, R, W) for _ in range(3)]
+        pts[2][:, :, 1::7] = 0  # infinity lanes
+        for reverse in (False, True):
+            for exclusive in (False, True):
+                check(ctx, f"hs_scan_points R={R} W={W} reverse={reverse} exclusive={exclusive}",
+                      scans.hs_scan_points(*pts, reverse=reverse, exclusive=exclusive),
+                      hs_plain(ctx, pts, reverse, exclusive))
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the paths, with every wrapper call logged
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def logging_calls():
+    """Inside the block, count each outermost call of a kernel wrapper by its
+    spec (kernel, shape, mode): what the replay needs to rebuild inputs of the
+    same shapes. The wrappers are swapped in their modules and put back."""
+    from kzg_torch.ops import curve as cv, field as fld, msm, scans
+
+    calls = collections.Counter()
+    depth = [0]
+    hs = lambda x, y, z, reverse=False, exclusive=False: (  # noqa: E731
+        "hs_scan_points", tuple(x.shape), reverse, exclusive)
+    specs = [
+        (fld, "mont_mul", lambda a, b, F: (f"mont_mul_{F.name.lower()}", tuple(a.shape))),
+        (cv, "g1_double", lambda p: ("g1_double", tuple(p[0].shape))),
+        (cv, "g1_add", lambda p, q: ("g1_add", tuple(p[0].shape))),
+        (cv, "g1_madd", lambda p, q, fast=False: ("g1_madd", tuple(p[0].shape), fast)),
+        (scans, "scan_prefix_madd", lambda xs, ys, fast=True: ("scan_madd", tuple(xs.shape), fast)),
+        (scans, "hs_scan_points", hs),
+        (msm, "hs_scan_points", hs),
+    ]
+    originals = []
+
+    def logged(fn, spec):
+        def wrapper(*args, **kwargs):
+            if depth[0] == 0:
+                calls[spec(*args, **kwargs)] += 1
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return wrapper
+
+    for mod, attr, spec in specs:
+        fn = getattr(mod, attr)
+        originals.append((mod, attr, fn))
+        setattr(mod, attr, logged(fn, spec))
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+
+
+def drive(ctx, label, fn):
+    """Run fn as one path: counts set to 0 before, read after, calls logged."""
+    from kzg_torch.ops import _build
+
+    _build.reset_launches()
+    with logging_calls() as calls:
+        ms, out = ctx.time_once(fn)
+    launches = dict(_build.LAUNCHES)
+    print(f"  {label}: {ms:.1f} ms; launches {launches}", flush=True)
+    missing = sorted(k for k in PATH_KERNELS[label] if launches.get(k, 0) == 0)
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
+    return ms, out, launches, dict(calls)
+
+
+def phase_paths(ctx):
+    torch = ctx.torch
+    from kzg_torch import Polynomial
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops.field import FR
+    from kzg_torch.trusted_setup import DeviceSRS
+    from kzg_torch.utils import hostmath as hm
+
+    n = 1 << LOG_N
+    rnd = random.Random(SEED)
+    secret = rnd.randrange(1, hm.R)
+    powers, pw = [], 1
+    for _ in range(n):
+        powers.append(pw)
+        pw = pw * secret % hm.R
+    coeffs = [rnd.randrange(hm.R) for _ in range(n)]
+
+    def oracle(k):
+        return hm.g1_mul(hm.G1_GEN, sum(c * p for c, p in zip(coeffs[:k], powers[:k])) % hm.R)
+
+    # set-up, not counted: the SRS points s^i G1
+    k = FR.tensor(powers, ctx.device, mont=False)
+    t_srs, srs_jac = ctx.time_once(
+        lambda: cv.mul_scalar_affine(cv.g1_gen_affine(ctx.device, n), k))
+    t_aff, ((gx, gy), inf) = ctx.time_once(lambda: cv.to_affine(srs_jac))
+    del srs_jac, k
+    if bool(inf.any()):
+        raise AssertionError("SRS holds the point at infinity")
+    spot = [0, 1, 2, n // 3, n - 1]
+    got_spot = cv.g1_from_device((gx[:, spot], gy[:, spot], cv.FP.one_like(gx[:, spot])))
+    if got_spot != [hm.g1_mul(hm.G1_GEN, powers[i]) for i in spot]:
+        raise AssertionError("SRS points differ from s^i G1")
+    print(f"  set-up, SRS 2^{LOG_N} points: ladder {t_srs:.1f} ms, to_affine {t_aff:.1f} ms",
+          flush=True)
+
+    # main path: table build and first commit at 2^20
+    srs = DeviceSRS(gx, gy, None, [], n)
+    poly = Polynomial.from_ints(coeffs, device=ctx.device)
+    expected = oracle(n)
+    torch.cuda.reset_peak_memory_stats()
+
+    def main_path():
+        t_tab, _ = ctx.time_once(srs.fixed_tables)
+        return t_tab, poly.commit(srs)
+
+    t_path, (t_tab, c), launches, calls = drive(ctx, MAIN, main_path)
+    if c.affine() != expected:
+        raise AssertionError("commit differs from the host oracle (sum a_i s^i mod r) G1")
+    print(f"  table build {t_tab:.1f} ms, first commit {t_path - t_tab:.1f} ms; equals the host "
+          f"oracle (sum a_i s^i mod r) G1", flush=True)
+    times = []
+    for _ in range(3):
+        dt, c2 = ctx.time_once(lambda: poly.commit(srs))
+        times.append(dt)
+        if c2.affine() != expected:
+            raise AssertionError("a warm commit differs from the oracle")
+    times.sort()
+    med = times[1]
+    print(f"  commit 2^{LOG_N}: median of 3 warm runs {med:.1f} ms ({times}), "
+          f"{n / med * 1e3:.0f} points/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+
+    # second path: the batched-affine commit below the fixed-base threshold
+    ns = BATCHED_N
+    small_srs = DeviceSRS(gx[:, :ns].contiguous(), gy[:, :ns].contiguous(), None, [], ns)
+    small = Polynomial.from_ints(coeffs[:ns], device=ctx.device)
+    t_small, cs, small_launches, small_calls = drive(ctx, BATCHED,
+                                                     lambda: small.commit(small_srs))
+    if cs.affine() != oracle(ns):
+        raise AssertionError(f"the {ns}-point commit differs from the host oracle")
+    small_times = sorted(ctx.time_once(lambda: small.commit(small_srs))[0] for _ in range(3))
+    print(f"  commit {ns}: equals the host oracle; median of 3 warm runs "
+          f"{small_times[1]:.2f} ms ({small_times})", flush=True)
+
+    paths = {MAIN: (launches, calls), BATCHED: (small_launches, small_calls)}
+    return paths, {"srs_ms": t_srs, "to_affine_ms": t_aff, "tables_ms": t_tab,
+                   "first_commit_ms": t_path - t_tab, "commit_ms": med, "commit_runs_ms": times,
+                   "batched_first_commit_ms": t_small, "batched_commit_ms": small_times[1]
+                   }, lambda: poly.commit(srs)
+
+
+def phase_profile(ctx, commit):
+    """One warm commit under torch.profiler: device time by kernel, and the
+    device's busy share of the wall time (kernels on one stream do not
+    overlap, so their sum is the busy time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms, _ = ctx.time_once(commit)
+    rows = []
+    for evt in prof.key_averages():
+        # device-side events only (kernels, copies): an aten op's row repeats
+        # the time of the kernels it launched
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        dev = getattr(evt, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "self_cuda_time_total", 0)
+        if dev > 0:
+            rows.append((dev / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"  profiled commit: {wall_ms:.2f} ms wall, {busy:.2f} ms device busy "
+          f"({busy / wall_ms:.1%}; idle {1 - busy / wall_ms:.1%}), {len(rows)} device kernels",
+          flush=True)
+    for ms, count, key in rows[:20]:
+        print(f"    {ms:9.3f} ms  x{count:<5} {key[:100]}", flush=True)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "top": [[k[:60], c, ms] for ms, c, k in rows[:12]]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: every logged call replayed at its shapes, checked and timed
+# ---------------------------------------------------------------------------
+
+
+def chunked(torch, fn, args, n: int):
+    """fn over lane slices [i, i + PLAIN_CHUNK) of (L, n) word tensors (nested
+    in tuples), the outputs concatenated along the last axis."""
+    def cut(a, i, j):
+        return tuple(cut(x, i, j) for x in a) if isinstance(a, tuple) else a[:, i:j]
+
+    def cat(parts):
+        if isinstance(parts[0], tuple):
+            return tuple(cat([p[k] for p in parts]) for k in range(len(parts[0])))
+        return torch.cat(parts, dim=-1)
+
+    return cat([fn(*cut(args, i, min(i + PLAIN_CHUNK, n)))
+                for i in range(0, max(n, 1), PLAIN_CHUNK)])
+
+
+def replay_case(ctx, spec):
+    """Seeded inputs at a logged call's shapes. Returns (kernel call, plain
+    call, bytes, operations): both calls give the same flat layout."""
+    torch = ctx.torch
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops import field as fld
+    from kzg_torch.ops import scans
+    from kzg_torch.ops.field import FP, FR
+
+    name, shape = spec[0], spec[1]
+    if name.startswith("mont_mul"):
+        F, ops = (FP, FP_MUL_OPS) if name == "mont_mul_fp" else (FR, FR_MUL_OPS)
+        n = math.prod(shape[1:])
+        a, b = ctx.rand_field(F, n), ctx.rand_field(F, n)
+        return (lambda: fld.mont_mul(a.view(shape), b.view(shape), F).reshape(F.L, n),
+                lambda: chunked(torch, lambda x, y: fld.mont_mul_plain(x, y, F), (a, b), n),
+                3 * 4 * F.L * n, ops * n)
+    if name in ("g1_double", "g1_add", "g1_madd"):
+        n = math.prod(shape[1:])
+        p, q = special_points(ctx, n)
+        qa = (q[0], q[1])
+        view = lambda pt: tuple(c.view(shape) for c in pt)  # noqa: E731
+        flat = lambda pt: tuple(c.reshape(FP.L, n) for c in pt)  # noqa: E731
+        if name == "g1_double":
+            return (lambda: flat(cv.g1_double(view(p))),
+                    lambda: chunked(torch, cv.g1_double_plain, (p,), n),
+                    6 * FP_BYTES * n, 7 * FP_MUL_OPS * n)
+        if name == "g1_add":
+            return (lambda: flat(cv.g1_add(view(p), view(q))),
+                    lambda: chunked(torch, cv.g1_add_plain, (p, q), n),
+                    9 * FP_BYTES * n, 16 * FP_MUL_OPS * n)
+        fast = spec[2]
+
+        def madd():
+            out = cv.g1_madd(view(p), view(qa), fast=fast)
+            return (flat(out[0]), out[1].reshape(n)) if fast else flat(out)
+
+        return (madd,
+                lambda: chunked(torch, lambda x, y: cv.g1_madd_plain(x, y, fast), (p, qa), n),
+                (8 * FP_BYTES + (4 if fast else 0)) * n, 11 * FP_MUL_OPS * n)
+    if name == "scan_madd":
+        m, _, C = shape
+        fast = spec[2]
+        xs = ctx.rand_field(FP, m * C).view(FP.L, m, C).permute(1, 0, 2)
+        ys = ctx.rand_field(FP, m * C).view(FP.L, m, C).permute(1, 0, 2)
+        return (lambda: scans.scan_prefix_madd(xs, ys, fast=fast),
+                lambda: scans.scan_prefix_madd_plain(xs, ys, fast),
+                5 * FP_BYTES * m * C, 11 * FP_MUL_OPS * m * C)
+    if name == "hs_scan_points":
+        reverse, exclusive = spec[2], spec[3]
+        W = shape[-1]
+        R = math.prod(shape[1:-1])
+        pts = [ctx.rand_field(FP, R * W) for _ in range(3)]
+        pts[2][:, 1::7] = 0  # infinity lanes
+        adds = R * max(W - (2 if exclusive else 1), 0)
+        return (lambda: tuple(c.reshape(FP.L, R * W) for c in scans.hs_scan_points(
+                    *(c.view(shape) for c in pts), reverse=reverse, exclusive=exclusive)),
+                lambda: tuple(c.reshape(FP.L, R * W) for c in hs_plain(
+                    ctx, tuple(c.view(FP.L, R, W) for c in pts), reverse, exclusive)),
+                6 * FP_BYTES * R * W, adds * 16 * FP_MUL_OPS)
+    raise ValueError(f"no replay for {spec}")
+
+
+def phase_replay(ctx, label, launches, calls):
+    """Per kernel of the path: ms, plain_ms, bytes and operations summed over
+    its logged calls (each distinct call replayed once, weighted by its
+    count). The launches the replays make per call, times the counts, must
+    add up to the path's own launches: the log missed no call."""
+    from kzg_torch.ops import _build
+
+    totals, seen = {}, collections.Counter()
+    for spec, count in sorted(calls.items(), key=lambda kv: (kv[0][0], str(kv[0]))):
+        name = spec[0]
+        kern, plain, n_bytes, n_ops = replay_case(ctx, spec)
+        before = _build.LAUNCHES[name]
+        got = kern()
+        seen[name] += (_build.LAUNCHES[name] - before) * count
+        plain_ms, want = ctx.time_once(plain)
+        err = check(ctx, f"{name} {spec[1:]} x{count}", got, want)
+        ms = ctx.time_cuda(kern)
+        print(f"    {ms:.4f} ms kernel, {plain_ms:.1f} ms plain per call", flush=True)
+        t = totals.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
+                                     "err": 0, "calls": 0})
+        t["ms"] += ms * count
+        t["plain_ms"] += plain_ms * count
+        t["bytes"] += n_bytes * count
+        t["ops"] += n_ops * count
+        t["err"] = max(t["err"], err)
+        t["calls"] += count
+    if {k: v for k, v in seen.items() if v} != {k: v for k, v in launches.items() if v}:
+        raise AssertionError(f"{label}: the logged calls make {dict(seen)} launches, "
+                             f"the path made {launches}")
+    for name, t in totals.items():
+        b, by = bound_ms(t["bytes"], t["ops"])
+        t.update(launches=launches[name], bound_ms=b, bound_by=by)
+        print(f"  {label}: {name}: {t['calls']} calls, {t['launches']} launches, "
+              f"{t['ms']:.4f} ms kernel, {t['plain_ms']:.1f} ms plain, bound {b:.4f} ms ({by})",
+              flush=True)
+    return totals
+
+
+def phase_exact_scan(ctx, calls):
+    """The exact scan runs only when the fast one raises its flag (a P == Q
+    step), so no path launches it: checked at the main path's scan shape and
+    timed in turns with the fast one on the same stream (fast, exact, exact,
+    fast), the measure of what the fast mode and its flag read buy."""
+    from kzg_torch.ops import scans
+    from kzg_torch.ops.field import FP
+
+    shape = next(spec[1] for spec in calls if spec[0] == "scan_madd")
+    m, _, C = shape
+    xs = ctx.rand_field(FP, m * C).view(FP.L, m, C).permute(1, 0, 2)
+    ys = ctx.rand_field(FP, m * C).view(FP.L, m, C).permute(1, 0, 2)
+    fast = lambda: scans.scan_prefix_madd(xs, ys, fast=True)  # noqa: E731
+    exact = lambda: scans.scan_prefix_madd(xs, ys, fast=False)  # noqa: E731
+    plain_ms, want = ctx.time_once(lambda: scans.scan_prefix_madd_plain(xs, ys, False))
+    check(ctx, f"scan_madd exact {shape}", exact(), want)
+    t = [ctx.time_cuda(f, reps=3) for f in (fast, exact, exact, fast)]
+    res = {"fast_ms": (t[0] + t[3]) / 2, "exact_ms": (t[1] + t[2]) / 2, "exact_plain_ms": plain_ms}
+    print(f"  scan_madd at {shape}: fast {t[0]:.3f} / {t[3]:.3f} ms, exact {t[1]:.3f} / "
+          f"{t[2]:.3f} ms, exact plain {plain_ms:.1f} ms", flush=True)
+    return res
+
+
+def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "kzg_torch", "csrc")):
+        return fail("kzg_torch/ is not beside this script")
+    sys.path.insert(0, here)
+    try:
+        import torch
+    except ImportError:
+        return fail("torch is not installed")
+    if not torch.cuda.is_available():
+        return fail("no CUDA device (torch.cuda.is_available() is false)")
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+
+    print("== device", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else None
+    if card is None:
+        return fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(card, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    from kzg_torch.ops import _build
+
+    print("== build", flush=True)
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    print(f"  built {_build.library_path().name} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    ctx = Ctx(torch, device)
+    print("== kernels, exceptional cases", flush=True)
+    phase_kernels(ctx)
+    print("== paths", flush=True)
+    paths, times, commit = phase_paths(ctx)
+    per_path = {}
+    for label, (launches, calls) in paths.items():
+        print(f"== replay: {label}", flush=True)
+        per_path[label] = phase_replay(ctx, label, launches, calls)
+    print("== the exact scan beside the fast one", flush=True)
+    times["scan_modes"] = phase_exact_scan(ctx, paths[MAIN][1])
+    # last, so that no timing above runs after the profiler
+    print("== profile: one warm 2^20 commit", flush=True)
+    times["profile"] = phase_profile(ctx, commit)
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        label = next((lb for lb, t in per_path.items() if name in t), None)
+        if label is None:
+            return fail(f"{name} was launched on no path")
+        t = per_path[label][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": t["launches"], "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "path": label, "calls": t["calls"],
+        })
+    print(json.dumps({"slice_ms": times, "card": card,
+                      "paths": {lb: {k: {f: v for f, v in t.items() if f != "err"}
+                                     for k, t in tot.items()}
+                                for lb, tot in per_path.items()}}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

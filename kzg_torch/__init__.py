@@ -1,0 +1,24 @@
+"""kzg_torch: the PyTorch / CUDA port of kzg_tpu for NVIDIA Hopper.
+
+Laid out like ``kzg_tpu``; imports torch and never jax or kzg_tpu. Entry
+points run on the first CUDA card unless the caller passes ``device="cpu"``.
+The kernels (``csrc/``) are built with nvcc on first use.
+"""
+
+from .curves import G1Point
+from .errors import CliError, KzgError, ProtocolError, SerializationError
+from .polynomial import Polynomial
+from .scalar import Scalar
+from .trusted_setup import DeviceSRS, SetupArtifact
+
+__all__ = [
+    "G1Point",
+    "CliError",
+    "KzgError",
+    "ProtocolError",
+    "SerializationError",
+    "Polynomial",
+    "Scalar",
+    "DeviceSRS",
+    "SetupArtifact",
+]

@@ -1,0 +1,70 @@
+"""The G1 group type: the reference's ``G1Point`` (src/curves.rs), as in
+``kzg_tpu/curves.py``.
+
+A point wraps a device Jacobian triple of (12,) Montgomery words, or host
+affine ints, and converts between them on demand: an MSM result stays on the
+device until its affine form, compression or JSON is asked for. Compression
+follows the ZCash convention (48 bytes; src/curves.rs:99-110) at the host
+boundary.
+"""
+
+from __future__ import annotations
+
+from .errors import SerializationError
+from .ops import curve as cv
+from .utils import hostmath as hm
+
+_UNSET = object()
+
+
+class G1Point:
+    __slots__ = ("_jac", "_affine")
+
+    def __init__(self, jac=None, affine=_UNSET):
+        self._jac = jac  # (X, Y, Z), each (12,) int32 words, or None
+        self._affine = affine  # host (x, y), None for infinity, or _UNSET
+
+    @classmethod
+    def from_affine(cls, p) -> "G1Point":
+        """Host affine ints (x, y), or None for infinity."""
+        return cls(None, p)
+
+    def affine(self):
+        """Host affine ints (x, y), or None for infinity."""
+        if self._affine is _UNSET:
+            self._affine = cv.g1_from_device(tuple(c.reshape(-1, 1) for c in self._jac))[0]
+        return self._affine
+
+    def is_infinity(self) -> bool:
+        return self.affine() is None
+
+    def compress(self) -> bytes:
+        return hm.g1_compress(self.affine())
+
+    @classmethod
+    def decompress(cls, data: bytes) -> "G1Point":
+        try:
+            p = hm.g1_decompress(bytes(data))
+        except ValueError as e:
+            raise SerializationError(str(e)) from e
+        return cls.from_affine(p)
+
+    def to_json(self) -> list[int]:
+        return list(self.compress())
+
+    @classmethod
+    def from_json(cls, data) -> "G1Point":
+        if not isinstance(data, list) or len(data) != 48:
+            raise SerializationError(
+                f"Invalid byte array, expected length 48, got {len(data) if isinstance(data, list) else type(data)}"
+            )
+        return cls.decompress(bytes(data))
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, G1Point) and self.affine() == other.affine()
+
+    def __hash__(self):
+        return hash(("G1Point", self.affine()))
+
+    def __repr__(self):
+        return f"G1Point({self.affine()})"

@@ -1,0 +1,175 @@
+"""The fixed-base MSM's two scan kernels, with their plain versions.
+
+Counterpart of ``kzg_tpu/ops/pallas_msm.py`` and ``pallas_msm25.py``:
+
+* K3 ``scan_prefix_madd`` (``csrc/scan_madd.cu``): per chunk, m sequential
+  mixed adds over the digit-sorted affine stream, every Jacobian prefix kept.
+* K4 ``hs_scan_points`` (``csrc/hs_scan.cu``): prefix or suffix sums of
+  Jacobian points along the last axis, inclusive or exclusive, any width.
+
+CPU tensors take the plain versions, CUDA tensors the kernels. Each plain
+version repeats its kernel's order of operations, so the two agree bit for
+bit on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from . import curve as cv
+from .field import FP
+
+HS_BLOCK = 256  # lanes per block of K4's first pass (kHsBlock in hs_scan.cu)
+
+
+# ---------------------------------------------------------------------------
+# K3: the bucket scan
+# ---------------------------------------------------------------------------
+
+
+def scan_prefix_madd_plain(xs: torch.Tensor, ys: torch.Tensor, fast: bool):
+    """Plain version of K3 (any device). xs, ys: (m, 12, C) affine words.
+    Returns (runs, flag): runs 3 x (m, 12, C) with runs[j, :, c] the sum of
+    the first j + 1 points of chunk c; flag (a 0-d bool tensor) is set when
+    fast and some lane met P == Q (its runs are then not the sums)."""
+    m, L, C = xs.shape
+    run = tuple(torch.zeros(2 * L, C, dtype=torch.int64, device=xs.device) for _ in range(3))
+    runs = tuple(torch.empty(m, L, C, dtype=torch.int32, device=xs.device) for _ in range(3))
+    flag = torch.zeros((), dtype=torch.bool, device=xs.device)
+    for j in range(m):
+        q = cv.to16((xs[j], ys[j]))
+        if fast:
+            run, need = cv.madd_fast16(run, q)
+            flag = flag | need.any()
+        else:
+            run = cv.madd16(run, q)
+        for out, c in zip(runs, cv.from16(run)):
+            out[j] = c
+    return runs, flag
+
+
+def scan_prefix_madd(xs: torch.Tensor, ys: torch.Tensor, fast: bool = True):
+    """K3 wrapper. xs, ys: (m, 12, C) int32 views with lane stride 1 and the
+    same strides (a permuted view of a gathered (12, m, C) stream is read in
+    place). CPU tensors take the plain version; CUDA tensors launch
+    ``kzg_scan_madd``. Returns (runs, flag) as the plain version does."""
+    if xs.shape != ys.shape or xs.dim() != 3 or xs.shape[1] != FP.L:
+        raise ValueError("scan streams must share one (m, 12, C) shape")
+    if xs.device.type == "cpu":
+        return scan_prefix_madd_plain(xs, ys, fast)
+    if xs.stride() != ys.stride() or xs.stride(2) != 1:
+        raise ValueError("scan streams must share strides, with lane stride 1")
+    if xs.dtype != torch.int32 or ys.dtype != torch.int32 or ys.device != xs.device:
+        raise TypeError("scan streams must be int32 on one CUDA device")
+    m, L, C = xs.shape
+    runs = tuple(torch.empty(m, L, C, dtype=torch.int32, device=xs.device) for _ in range(3))
+    flag = torch.zeros(1, dtype=torch.int32, device=xs.device)
+    _build.launch("scan_madd", "kzg_scan_madd", xs.data_ptr(), ys.data_ptr(),
+                  xs.stride(0), xs.stride(1), *(r.data_ptr() for r in runs),
+                  flag.data_ptr(), m, C, int(fast))
+    return runs, flag[0] != 0
+
+
+def scan_runs(xs: torch.Tensor, ys: torch.Tensor):
+    """The scan as the MSM runs it: the fast mode, and the exact mode again
+    only if a lane needed a doubling (kzg_tpu msm.py:584-592; one host read
+    of the flag)."""
+    runs, flag = scan_prefix_madd(xs, ys, fast=True)
+    if bool(flag):
+        runs, _ = scan_prefix_madd(xs, ys, fast=False)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# K4: point prefix / suffix sums
+# ---------------------------------------------------------------------------
+
+
+def _shift_right16(p):
+    """Lanes move one step toward higher indices along the last axis;
+    lane 0 becomes infinity."""
+    return tuple(torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], dim=-1) for c in p)
+
+
+def _hs_block16(p):
+    """Hillis-Steele inclusive prefix sums along the last axis, lane w adding
+    lane w - 2^k at level k (the JAX package's _hs_scan_points order)."""
+    W = p[0].shape[-1]
+    shift = 1
+    while shift < W:
+        partner = tuple(torch.cat([torch.zeros_like(c[..., :shift]), c[..., :-shift]], dim=-1)
+                        for c in p)
+        p = cv.add16(p, partner)
+        shift *= 2
+    return p
+
+
+def _hs_prefix16(p):
+    """Plain version of K4's inclusive prefix scan on (24, R, W) limbs."""
+    W = p[0].shape[-1]
+    if W <= HS_BLOCK:
+        return _hs_block16(p)
+    nb = -(-W // HS_BLOCK)
+    pad = nb * HS_BLOCK - W
+    blocks = tuple(torch.nn.functional.pad(c, (0, pad)).reshape(c.shape[:-1] + (nb, HS_BLOCK))
+                   for c in p)
+    scan = _hs_block16(blocks)
+    last = torch.full((nb,), HS_BLOCK - 1, device=p[0].device)
+    last[-1] = (W - 1) % HS_BLOCK
+    totals = tuple(c[..., torch.arange(nb, device=c.device), last] for c in scan)
+    off = _shift_right16(_hs_prefix16(totals))
+    scan = cv.add16(scan, tuple(o.unsqueeze(-1).expand_as(s) for o, s in zip(off, scan)))
+    return tuple(c.reshape(c.shape[:-2] + (nb * HS_BLOCK,))[..., :W] for c in scan)
+
+
+def hs_scan_points_plain(x, y, z, reverse: bool = False):
+    """Plain version of K4 (inclusive) on (12, R, W) words, any device."""
+    p = cv.to16((x, y, z))
+    if reverse:
+        p = tuple(c.flip(-1) for c in p)
+    p = _hs_prefix16(p)
+    if reverse:
+        p = tuple(c.flip(-1) for c in p)
+    return cv.from16(p)
+
+
+def _hs_scan_cuda(x, y, z, reverse: bool):
+    _build.check_cuda(x, y, z)
+    _, R, W = x.shape
+    nb = -(-W // HS_BLOCK)
+    out = tuple(torch.empty_like(c) for c in (x, y, z))
+    tot = tuple(torch.empty(FP.L, R, nb, dtype=torch.int32, device=x.device) for _ in range(3))
+    _build.launch("hs_scan_points", "kzg_hs_scan_block",
+                  *(c.data_ptr() for c in (x, y, z) + out + tot), R, W, int(reverse))
+    if nb > 1:
+        off = tuple(c.contiguous() for c in hs_scan_points(*tot, exclusive=True))
+        _build.launch("hs_scan_points", "kzg_hs_scan_offset",
+                      *(c.data_ptr() for c in out + off), R, W, int(reverse))
+    return out
+
+
+def hs_scan_points(x, y, z, reverse: bool = False, exclusive: bool = False):
+    """K4 wrapper: prefix (or, with reverse, suffix) sums of Jacobian points
+    along the LAST axis of (12, *batch, W) coordinates; exclusive shifts the
+    result one lane (data movement, here in the wrapper). CPU tensors take the
+    plain version, CUDA tensors launch ``kzg_hs_scan_block`` (and, for
+    W > 256, scan the block totals and launch ``kzg_hs_scan_offset``).
+
+    For W <= 256 the result equals kzg_tpu's _hs_scan_points bit for bit;
+    wider rows group the adds by block, equal as group elements."""
+    shape = x.shape
+    W = shape[-1]
+    R = x.numel() // (FP.L * W)
+    flat = tuple(c.reshape(FP.L, R, W).contiguous() for c in (x, y, z))
+    if x.device.type == "cpu":
+        out = hs_scan_points_plain(*flat, reverse=reverse)
+    else:
+        out = _hs_scan_cuda(*flat, reverse=reverse)
+    if exclusive:
+        if reverse:
+            out = tuple(torch.cat([c[..., 1:], torch.zeros_like(c[..., :1])], dim=-1)
+                        for c in out)
+        else:
+            out = _shift_right16(out)
+    return tuple(c.reshape(shape) for c in out)

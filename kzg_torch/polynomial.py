@@ -1,0 +1,138 @@
+"""Polynomial over Fr and its commitment: the reference's ``Polynomial``
+(src/polynomial.rs), as in ``kzg_tpu/polynomial.py:37-192``.
+
+Coefficients live as ONE tensor of Montgomery Fr words, shape (8, n),
+ascending degree, on the device the polynomial was built for. Semantics kept
+exactly:
+  - construction truncates trailing zero coefficients after the last
+    non-zero one; an all-zero non-empty input keeps one zero coefficient, an
+    empty input gives the zero polynomial with degree() == 0
+    (src/polynomial.rs:55-100)
+  - at most 2^32 - 1 coefficients (src/polynomial.rs:56-61)
+  - commit requires degree + 1 <= len(setup) (src/polynomial.rs:201-205)
+Evaluation, division and proofs are later slices of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .curves import G1Point
+from .errors import ProtocolError
+from .ops import curve as cv
+from .ops import msm as msmops
+from .ops.field import FR
+from .scalar import Scalar
+from .utils import hostmath as hm
+from .utils.device import resolve_device
+
+MAX_COEFFS = 2**32 - 1
+
+
+class Polynomial:
+    __slots__ = ("_coeffs",)
+
+    def __init__(self, coeffs: torch.Tensor):
+        """coeffs: (8, n) Montgomery Fr words, ascending degree, already
+        normalized. Internal: use the from_* constructors."""
+        self._coeffs = coeffs
+
+    # -- constructors -------------------------------------------------------------
+
+    @classmethod
+    def from_ints(cls, values, device=None) -> "Polynomial":
+        """From i128-semantics integer coefficients (ascending degree)."""
+        device = resolve_device(device)
+        if len(values) > MAX_COEFFS:
+            raise ProtocolError(
+                f"Too many coefficients for polynomial, only 2**32 - 1 coefficients is supported. Got {len(values)}"
+            )
+        vals = [v % hm.R for v in values]
+        last = 0
+        for i, v in enumerate(vals):
+            if v != 0:
+                last = i
+        vals = vals[: last + 1]
+        if not vals:
+            return cls(torch.zeros(FR.L, 0, dtype=torch.int32, device=device))
+        return cls(FR.tensor(vals, device))
+
+    @classmethod
+    def from_scalars(cls, values: list[Scalar], device=None) -> "Polynomial":
+        return cls.from_ints([v.to_int() for v in values], device)
+
+    @classmethod
+    def from_constant(cls, a: Scalar, device=None) -> "Polynomial":
+        """Order-0 polynomial; a zero constant gives the empty polynomial
+        (src/polynomial.rs:78-89)."""
+        if a.is_zero():
+            return cls.from_ints([], device)
+        return cls.from_ints([a.to_int()], device)
+
+    # -- views ----------------------------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self._coeffs.device
+
+    @property
+    def num_coefficients(self) -> int:
+        return int(self._coeffs.shape[1])
+
+    def degree(self) -> int:
+        """One less than the coefficient count; 0 for the zero polynomial."""
+        n = self.num_coefficients
+        return n - 1 if n else 0
+
+    def coefficient_ints(self) -> list[int]:
+        return FR.from_words_many(self._coeffs)
+
+    def coefficients(self) -> list[Scalar]:
+        return [Scalar(v) for v in self.coefficient_ints()]
+
+    @property
+    def coeffs_mont(self) -> torch.Tensor:
+        """(8, n) Montgomery words: the kernel-facing view."""
+        return self._coeffs
+
+    # -- commitment -------------------------------------------------------------------
+
+    def commit(self, setup) -> G1Point:
+        """C = sum_i a_i (s^i G1) (reference hot loop src/polynomial.rs:207-214).
+
+        ``setup`` is a list of SetupArtifact (reference parity) or a
+        trusted_setup.DeviceSRS. With a DeviceSRS and n >= FIXED_BASE_THRESHOLD
+        coefficients the MSM runs against the SRS's fixed-base tables; every
+        other case runs the batched double-and-add MSM. Both give the same
+        group element."""
+        from .trusted_setup import DeviceSRS
+
+        n = self.num_coefficients
+        if self.degree() + 1 > len(setup):
+            raise ProtocolError(
+                "Setup does not allow for commitment generation of the polynomial. The polynomial degree is too high."
+            )
+        if n == 0:
+            return G1Point.from_affine(None)
+        scalars = FR.from_mont(self._coeffs)
+        if isinstance(setup, DeviceSRS):
+            if setup.device != self.device:
+                raise ValueError(f"SRS on {setup.device}, polynomial on {self.device}")
+            mask = setup.g1_inf[:n] if setup.g1_inf is not None else None
+            if n >= msmops.FIXED_BASE_THRESHOLD:
+                return G1Point(msmops.msm_g1_fixed(setup.fixed_tables(), scalars, inf_mask=mask))
+            pts = (setup.g1_x[:, :n], setup.g1_y[:, :n])
+            return G1Point(msmops.msm_batched_affine(pts, scalars, inf_mask=mask))
+        x, y, z = cv.g1_to_device([a.g1.affine() for a in setup[:n]], self.device)
+        inf = cv.FP.is_zero(z)
+        mask = inf if bool(inf.any()) else None
+        return G1Point(msmops.msm_batched_affine((x, y), scalars, inf_mask=mask))
+
+    # -- serde -------------------------------------------------------------------------
+
+    def to_json(self) -> dict:
+        return {"coefficients": [list(v.to_bytes(32, "little")) for v in self.coefficient_ints()]}
+
+    @classmethod
+    def from_json(cls, data: dict, device=None) -> "Polynomial":
+        return cls.from_scalars([Scalar.from_json(c) for c in data["coefficients"]], device)

@@ -1,0 +1,81 @@
+"""kzg_torch kernels on the card against their plain versions, bit for bit,
+at small shapes. Marked ``gpu``: each test skips where there is no CUDA
+device. Run on a machine with a card:
+
+    python -m pytest tests/test_torch_gpu.py -q -m gpu
+
+(``chip_smoke.py`` runs the same comparisons at the 2^20 commit's shapes.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kzg_torch.ops import curve as cv
+from kzg_torch.ops import field as fld
+from kzg_torch.ops import scans
+from kzg_torch.ops.field import FP, FR
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _rand(F, n, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, size=(F.L, n), dtype=np.uint64).astype(np.uint32)
+    w[-1] %= np.uint32(F.modulus >> (32 * (F.L - 1)))
+    return torch.from_numpy(w.view(np.int32))
+
+
+def _same(a, b):
+    if isinstance(a, (tuple, list)):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("name", ["Fp", "Fr"])
+def test_mont_mul_kernel_matches_plain(cuda, name):
+    F = {"Fp": FP, "Fr": FR}[name]
+    a, b = _rand(F, 1000, 1).to(cuda), _rand(F, 1000, 2).to(cuda)
+    assert _same(fld.mont_mul(a, b, F), fld.mont_mul_plain(a, b, F))
+
+
+def test_point_kernels_match_plain(cuda):
+    p = tuple(_rand(FP, 300, s).to(cuda) for s in (3, 4, 5))
+    q = tuple(_rand(FP, 300, s).to(cuda) for s in (6, 7, 8))
+    q = (torch.cat([p[0][:, :4], q[0][:, 4:]], 1), torch.cat([p[1][:, :4], q[1][:, 4:]], 1),
+         torch.cat([p[2][:, :4], q[2][:, 4:]], 1))
+    p[2][:, 10:14] = 0
+    assert _same(cv.g1_double(p), cv.g1_double_plain(p))
+    assert _same(cv.g1_add(p, q), cv.g1_add_plain(p, q))
+    assert _same(cv.g1_madd(p, q[:2]), cv.g1_madd_plain(p, q[:2]))
+    got, need = cv.g1_madd(p, q[:2], fast=True)
+    want, want_need = cv.g1_madd_plain(p, q[:2], fast=True)
+    assert _same(got, want) and torch.equal(need.cpu(), want_need.cpu())
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_scan_kernel_matches_plain(cuda, fast):
+    m, C = 6, 37
+    xs = _rand(FP, m * C, 9).to(cuda).view(FP.L, m, C).permute(1, 0, 2)
+    ys = _rand(FP, m * C, 10).to(cuda).view(FP.L, m, C).permute(1, 0, 2)
+    xs[1, :, 2] = xs[0, :, 2]
+    ys[1, :, 2] = ys[0, :, 2]
+    got, flag = scans.scan_prefix_madd(xs, ys, fast=fast)
+    want, want_flag = scans.scan_prefix_madd_plain(xs, ys, fast=fast)
+    assert _same(got, want) and bool(flag) == bool(want_flag) == fast
+
+
+@pytest.mark.parametrize("W", [32, 700])
+def test_hs_scan_kernel_matches_plain(cuda, W):
+    pts = tuple(_rand(FP, 2 * W, s).to(cuda).view(FP.L, 2, W) for s in (11, 12, 13))
+    pts[2][:, :, ::5] = 0
+    for reverse in (False, True):
+        got = scans.hs_scan_points(*pts, reverse=reverse)
+        assert _same(got, scans.hs_scan_points_plain(*pts, reverse=reverse))

@@ -1,0 +1,196 @@
+"""kzg_torch MSM layer on the CPU: the plain versions of K3 (bucket scan) and
+K4 (point prefix scan) against the JAX package's CPU paths, the signed-digit
+rewrite, and the fixed-base MSM against exact python ints.
+Tolerance: exact equality (integer arithmetic)."""
+
+import numpy as np
+import pytest
+import torch
+
+from kzg_torch import convert
+from kzg_torch.ops import curve as cv
+from kzg_torch.ops import msm, scans
+from kzg_torch.ops.field import FP
+from kzg_torch.utils import hostmath as hm
+
+
+def _points(n, seed):
+    rng = np.random.default_rng(seed)
+    ks = [int(k) + 2 for k in rng.integers(0, 1 << 62, size=n)]
+    return ks, [hm.g1_mul(hm.G1_GEN, k) for k in ks]
+
+
+def _scalars(n, seed):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+    return [sum(int(w) << (32 * i) for i, w in enumerate(row)) % hm.R for row in words]
+
+
+def _affine(p):
+    return cv.g1_from_device(tuple(c.reshape(FP.L, -1) for c in p))
+
+
+@pytest.fixture(scope="module")
+def tables64():
+    """64 SRS-like points i * G (i = 1..64), one of them flagged infinite,
+    and their fixed-base tables."""
+    pts = [hm.g1_mul(hm.G1_GEN, i + 1) for i in range(64)]
+    x, y, _ = cv.g1_to_device(pts, "cpu")
+    mask = torch.zeros(64, dtype=torch.bool)
+    mask[7] = True
+    return pts, (x, y), mask, msm.precompute_g1_tables((x, y), mask)
+
+
+def test_scan_bit_identical_to_kzg_tpu_lax_scan():
+    """m = 8 steps over C = 16 chunks, chunk 3 meeting P == Q at step 1 (the
+    fast mode flags it and the exact mode reruns), against kzg_tpu's
+    lax.scan of exact madds on the same sorted stream."""
+    from kzg_tpu.ops import msm as jmsm
+
+    m, C = 8, 16
+    _, pts = _points(m * C, 21)
+    pts[3 * m + 1] = pts[3 * m]
+    x, y, _ = cv.g1_to_device(pts, "cpu")  # (12, P), pair c * m + j
+    xs = x.view(FP.L, C, m).permute(2, 0, 1)
+    ys = y.view(FP.L, C, m).permute(2, 0, 1)
+    _, flag = scans.scan_prefix_madd(xs, ys, fast=True)
+    assert bool(flag)
+    runs = scans.scan_runs(xs, ys)
+    want_flat, want_totals = jmsm._fb_scan_cond_jit(
+        convert.to_jax_limbs(x), convert.to_jax_limbs(y), m)
+    for r, w, t in zip(runs, want_flat, want_totals):
+        assert torch.equal(r.permute(1, 2, 0).reshape(FP.L, C * m), convert.from_jax_limbs(np.asarray(w)))
+        assert torch.equal(r[-1], convert.from_jax_limbs(np.asarray(t)))
+    sums = _affine(tuple(r[-1] for r in runs))
+    for c in (0, 3):
+        acc = None
+        for j in range(m):
+            acc = hm.g1_add(acc, pts[c * m + j])
+        assert sums[c] == acc
+
+
+def test_hs_scan_bit_identical_to_kzg_tpu():
+    """The suffix sums the weighted bucket reduction takes, W = 32 over 3 rows,
+    against kzg_tpu's _hs_scan_points (one block, so bit for bit)."""
+    import jax
+
+    from kzg_tpu.ops import msm as jmsm
+
+    _, pts = _points(3 * 32, 22)
+    pts[5] = None
+    pts[40] = pts[41]
+    jac = tuple(c.view(FP.L, 3, 32) for c in cv.g1_to_device(pts, "cpu"))
+    got = scans.hs_scan_points(*jac, reverse=True)
+    fn = jax.jit(lambda p: jmsm._hs_scan_points(p, axis=2, reverse=True))
+    want = fn(tuple(convert.to_jax_limbs(c) for c in jac))
+    for g, w in zip(got, want):
+        assert torch.equal(g, convert.from_jax_limbs(np.asarray(w)))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("exclusive", [False, True])
+@pytest.mark.parametrize("W", [5, 32, 300])
+def test_hs_scan_modes_match_host_sums(reverse, exclusive, W):
+    """Every mode, within one block and across blocks (W = 300 > 256: block
+    scans, then the totals' scan and the offset adds), as group elements."""
+    _, base = _points(8, 23)
+    pts = [base[(3 * i) % 8] if i % 9 else None for i in range(W)]
+    jac = tuple(c.view(FP.L, 1, W) for c in cv.g1_to_device(pts, "cpu"))
+    got = _affine(scans.hs_scan_points(*jac, reverse=reverse, exclusive=exclusive))
+    order = range(W - 1, -1, -1) if reverse else range(W)
+    want = [None] * W
+    acc = None
+    for k in order:
+        if not exclusive:
+            acc = hm.g1_add(acc, pts[k])
+        want[k] = acc
+        if exclusive:
+            acc = hm.g1_add(acc, pts[k])
+    assert got == want
+
+
+def test_signed_digits_recompose_and_match_kzg_tpu():
+    from kzg_tpu.ops import msm as jmsm
+
+    ks = _scalars(40, 24) + [0, 1, hm.R - 1, (1 << 16) - 1, 1 << 15, (1 << 15) + 1]
+    k = cv.fr_std_words(ks, "cpu")
+    absd, negd = msm.signed_digits(k)
+    assert int(absd.max()) <= 1 << 15
+    for j, kj in enumerate(ks):
+        e = [(-1 if bool(negd[w, j]) else 1) * int(absd[w, j]) for w in range(16)]
+        assert sum(ew << (16 * w) for w, ew in enumerate(e)) == kj
+    ja, jn = jmsm._fb_digits_signed(convert.to_jax_limbs(k))
+    assert np.array_equal(absd.numpy(), np.asarray(ja).astype(np.int64))
+    assert np.array_equal(negd.numpy(), np.asarray(jn))
+
+
+def test_tables_hold_window_multiples(tables64):
+    pts, _, _, (tx, ty) = tables64
+    n2 = 64
+    assert tx.shape == (FP.L, 16 * n2)
+    cols = [3, 7, 2 * n2 + 5, 15 * n2 + 63]
+    got = cv.g1_from_device((tx[:, cols], ty[:, cols], FP.one_like(tx[:, cols])))
+    # lane 7 is flagged infinite: its table column holds the generator's multiples
+    want = [hm.g1_mul(pts[3], 1), hm.G1_GEN, hm.g1_mul(pts[5], 1 << 32),
+            hm.g1_mul(pts[63], 1 << 240)]
+    assert got == want
+
+
+def test_msm_g1_fixed_matches_host(tables64):
+    _, _, mask, tables = tables64
+    ks = _scalars(64, 25)
+    ks[0], ks[1], ks[2] = 0, 1, hm.R - 1
+    ks[10] = ks[11] = 1 << 16  # a shared bucket
+    got = msm.msm_g1_fixed(tables, cv.fr_std_words(ks, "cpu"), inf_mask=mask)
+    expect = sum((i + 1) * k for i, k in enumerate(ks) if i != 7) % hm.R
+    assert _affine(got) == [hm.g1_mul(hm.G1_GEN, expect)]
+
+
+def test_msm_g1_fixed_fewer_scalars_than_table(tables64):
+    _, _, _, tables = tables64
+    ks = _scalars(5, 26)
+    got = msm.msm_g1_fixed(tables, cv.fr_std_words(ks, "cpu"), chunk=64)
+    expect = sum((i + 1) * k for i, k in enumerate(ks)) % hm.R
+    assert _affine(got) == [hm.g1_mul(hm.G1_GEN, expect)]
+    with pytest.raises(ValueError):
+        msm.msm_g1_fixed(tables, cv.fr_std_words(ks, "cpu"), chunk=48)
+    with pytest.raises(ValueError):
+        msm.msm_g1_fixed(tables, cv.fr_std_words(_scalars(65, 27), "cpu"))
+
+
+def test_fb_chunk_size():
+    assert msm.fb_chunk_size(16 * (1 << 20)) == 512
+    assert msm.fb_chunk_size(16 * 64) == 64
+    assert msm.fb_chunk_size(32, 64) == 32
+
+
+def test_tree_reduce_and_batched_affine_msm():
+    ks, pts = _points(5, 28)
+    jac = cv.g1_to_device(pts + [None], "cpu")
+    total = _affine(msm.tree_reduce(jac))
+    assert total == [hm.g1_mul(hm.G1_GEN, sum(ks))]
+    x, y, _ = cv.g1_to_device(pts, "cpu")
+    sc = [3, 0, hm.R - 1, 5, 7]
+    mask = torch.tensor([False, False, False, True, False])
+    got = msm.msm_batched_affine((x, y), cv.fr_std_words(sc, "cpu"), inf_mask=mask)
+    expect = sum(k * s for k, s, m in zip(ks, sc, mask.tolist()) if not m) % hm.R
+    assert _affine(got) == [hm.g1_mul(hm.G1_GEN, expect)]
+
+
+@pytest.mark.slow
+def test_msm_on_kzg_tpu_tables(tables64):
+    """The port's MSM on the JAX package's own precompute_g1_tables output.
+    Slow: compiling the JAX table build takes over a minute on a cold cache."""
+    import jax.numpy as jnp
+
+    from kzg_tpu.ops import msm as jmsm
+
+    _, (x, y), mask, _ = tables64
+    jt = jmsm.precompute_g1_tables(
+        (jnp.asarray(convert.to_jax_limbs(x)), jnp.asarray(convert.to_jax_limbs(y))),
+        jnp.asarray(mask.numpy()))
+    tables = convert.tables_from_jax(np.asarray(jt[0]), np.asarray(jt[1]), device="cpu")
+    ks = _scalars(64, 29)
+    got = msm.msm_g1_fixed(tables, cv.fr_std_words(ks, "cpu"), inf_mask=mask)
+    expect = sum((i + 1) * k for i, k in enumerate(ks) if i != 7) % hm.R
+    assert _affine(got) == [hm.g1_mul(hm.G1_GEN, expect)]
