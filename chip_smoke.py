@@ -10,23 +10,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    source, in parallel) into build/kzg_torch_kernels/.
 3. kernels: each kernel against its plain PyTorch version on the card on
    seeded inputs with the exceptional cases (P == Q, P == -Q and infinity
-   lanes, an odd C < 64 scan with a P == Q step, every K4 mode); the expected
-   result is bit-identical output.
+   lanes, an odd C < 64 scan with a P == Q step, every K4 mode; for the
+   window fold a zero digit in every window position, an all-zero scalar,
+   k = r - 1 and a lane whose partial sum equals its next table entry, so
+   that the exact madd doubles; the doubling chain at 1, 5 and 16 steps);
+   the expected result is bit-identical output.
 4. paths, each driven through the entry points with the launch counts set to
    0 just before and read just after, and every call of a kernel wrapper
    logged with its shapes:
-   - main: the fixed-base commit at n = 2^20: DeviceSRS.fixed_tables() and
-     the first Polynomial.commit. Its SRS points s^i G1 are made beforehand
-     (the port's double-and-add ladder and to_affine, not counted).
+   - ceremony: genmul.chunked_srs_g1(s, 2^20, chunk=2^16), the G1
+     powers-of-tau (generator tables, then the window fold per chunk). Its
+     SRS must equal, on every one of the 2^20 lanes, the one the port's
+     double-and-add ladder and to_affine make (set-up, not counted), and the
+     host oracle s^i G1 on spot lanes.
+   - main: the fixed-base commit at n = 2^20 against the ceremony's SRS:
+     DeviceSRS.fixed_tables() and the first Polynomial.commit.
+   - proof: Polynomial.evaluate at a seeded x and Evaluation.generate_proof
+     (sub, divide_by_root, the quotient's commit against the same tables).
+     y must equal the host's Horner value P(x), and the proof
+     ((P(s) - y) / (s - x) mod r) G1.
    - batched: the commit below FIXED_BASE_THRESHOLD (n = 8192), which runs
-     the batched double-and-add MSM, the one path that launches g1_madd.
-   Each result must equal the host oracle (sum a_i s^i mod r) G1, and each
+     the batched double-and-add MSM.
+   Each commit must equal the host oracle (sum a_i s^i mod r) G1, and each
    kernel of a path must have launched in its run.
 5. replay: every logged call again at its shapes on seeded inputs, kernel
    against plain version (bit-identical), then timed by CUDA events. A
    kernel's ms, plain_ms and bound are sums over the calls its path made.
-   The exact scan, which no path launches here, is checked and timed at the
-   main path's scan shape beside the fast one.
+   The kernels no path launches are checked and timed at fixed shapes: the
+   exact scan at the main path's scan shape beside the fast one, the fold
+   over pre-gathered entries (K8) at the ceremony's fold shape, and the
+   doubling chain (K7) at 2^16 lanes and 16 steps. Then the stage times of
+   the ceremony and of the proof.
 6. profile: one warm 2^20 commit under torch.profiler, device time by kernel.
 7. a line {"kernels": [...]}, then the last line {"ok": true, "device": ...}.
 
@@ -37,7 +51,9 @@ throughput for compute capability 9.0). A 32x32->64 multiply-add counts as
 two 32-bit multiply-adds, so an Fp Montgomery multiply (12 words, CIOS) is
 2 * (2 * 12^2 + 12) = 600 and an Fr one 2 * (2 * 8^2 + 8) = 272. A point add
 is 16 Fp multiplies, a mixed add 11, a doubling 7; a prefix sum of W points
-needs W - 1 adds (W - 2 when exclusive), whatever order a kernel adds in.
+needs W - 1 adds (W - 2 when exclusive), whatever order a kernel adds in; a
+fold needs one mixed add per non-zero entry after a lane's first (the first
+is a copy), counted on the inputs of the run.
 """
 
 from __future__ import annotations
@@ -56,6 +72,7 @@ SEED = 20240521
 LOG_N = 20
 BATCHED_N = 8192  # below the fixed-base threshold: the batched-affine commit
 CHECK_LANES = 1 << 16  # lanes of the exceptional-case checks of phase 3
+FOLD_CHECK_LANES = 4096  # the fold's: phase 5 checks it again at 2^16 lanes
 PLAIN_CHUNK = 1 << 20  # lanes per plain call in the replays: bounds its temporaries
 HBM_BYTES_PER_S = 3.35e12
 INT_MAD_PER_S = 132 * 64 * 1.98e9
@@ -72,12 +89,21 @@ KERNELS = {
     "g1_madd": ("kzg_torch/csrc/g1_point.cu", "kzg_tpu/ops/pallas_curve.py:260"),
     "scan_madd": ("kzg_torch/csrc/scan_madd.cu", "kzg_tpu/ops/pallas_msm25.py:360"),
     "hs_scan_points": ("kzg_torch/csrc/hs_scan.cu", "kzg_tpu/ops/pallas_msm.py:280"),
+    "gen_fold": ("kzg_torch/csrc/gen_fold.cu", "kzg_tpu/ops/pallas_msm25.py:445"),
+    "fold_entries": ("kzg_torch/csrc/gen_fold.cu", "kzg_tpu/ops/pallas_msm.py:396"),
+    "dbl_chain": ("kzg_torch/csrc/dbl_chain.cu", "kzg_tpu/ops/pallas_msm.py:336"),
 }
+SRS_CHUNK = 1 << 16  # the chunk bench.py passes to the JAX package's ceremony
+DBL_STEPS = 16
+CEREMONY = f"G1 ceremony 2^{LOG_N} (chunk 2^16)"
 MAIN = f"fixed-base commit 2^{LOG_N} (table build + first commit)"
+PROOF = f"opening proof 2^{LOG_N} (evaluate + generate_proof)"
 BATCHED = f"batched-affine commit {BATCHED_N}"
 # the kernels each path must launch
 PATH_KERNELS = {
+    CEREMONY: {"mont_mul_fp", "mont_mul_fr", "g1_madd", "gen_fold"},
     MAIN: {"mont_mul_fp", "mont_mul_fr", "g1_double", "g1_add", "scan_madd", "hs_scan_points"},
+    PROOF: {"mont_mul_fr", "g1_double", "g1_add", "scan_madd", "hs_scan_points"},
     BATCHED: {"mont_mul_fr", "g1_double", "g1_add", "g1_madd"},
 }
 
@@ -197,6 +223,47 @@ def hs_plain(ctx, pts, reverse: bool, exclusive: bool):
     return tuple(torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], -1) for c in out)
 
 
+def collide_sum() -> int:
+    """S = 0x74 2^248 - r, below 2^248: a lane with S's bytes in windows 0-30
+    and 0x74 in window 31 reaches the partial sum S G just as it meets the
+    entry T[31][0x74] = (0x74 2^248 mod r) G = S G, so the exact madd
+    doubles; the lane's value is 2 S G."""
+    from kzg_torch.utils import hostmath as hm
+
+    return 0x74 * (1 << 248) - hm.R
+
+
+def fold_digits(ctx, n: int):
+    """(32, n) int32 window digits, seeded, with the fold's exceptional lanes
+    first when n >= 35: lane w < 32 has digit 0 in window w, lane 32 is the
+    all-zero scalar, lane 33 is k = r - 1, and lane 34 the doubling lane of
+    collide_sum()."""
+    torch = ctx.torch
+    from kzg_torch.ops import genmul
+    from kzg_torch.ops.field import FR
+    from kzg_torch.utils import hostmath as hm
+
+    d = torch.randint(0, 256, (32, n), dtype=torch.int32, device=ctx.device, generator=ctx.gen)
+    if n < 35:
+        return d
+    d[torch.arange(32, device=ctx.device), torch.arange(32, device=ctx.device)] = 0
+    d[:, 32] = 0
+    d[:, 33] = genmul._digits8(FR.tensor([hm.R - 1], ctx.device, mont=False))[:, 0].to(torch.int32)
+    collide = collide_sum()
+    d[:, 34] = torch.tensor([(collide >> (8 * w)) & 0xFF for w in range(31)] + [0x74],
+                            dtype=torch.int32, device=ctx.device)
+    return d
+
+
+def gathered_entries(ctx, tables, digits):
+    """The (32, 12, n) x and y entry streams T[w][digits[w]]: K8's input."""
+    tx, ty = tables
+    w = ctx.torch.arange(digits.shape[0], device=digits.device)[:, None]
+    idx = digits.long()
+    return (tx[:, w, idx].permute(1, 0, 2).contiguous(),
+            ty[:, w, idx].permute(1, 0, 2).contiguous())
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version, exceptional cases
 # ---------------------------------------------------------------------------
@@ -207,6 +274,7 @@ def phase_kernels(ctx):
     from kzg_torch.ops import field as fld
     from kzg_torch.ops import scans
     from kzg_torch.ops.field import FP, FR
+    from kzg_torch.utils import hostmath as hm
 
     n = CHECK_LANES
     for F in (FP, FR):
@@ -245,6 +313,27 @@ def phase_kernels(ctx):
         if fast and not (bool(flag) and bool(want_flag)):
             raise AssertionError("scan fast: the needs-double flag was not raised")
 
+    # K5 / K8 on a fold with every exceptional lane, K7 at 1, 5 and 16 steps
+    from kzg_torch.ops import genmul
+
+    tables = genmul._build_tables(ctx.device)  # not cached: the ceremony path builds its own
+    digits = fold_digits(ctx, FOLD_CHECK_LANES)
+    got = genmul.gen_fold(*tables, digits)
+    check(ctx, f"gen_fold (n={FOLD_CHECK_LANES}, zero digits / k = 0 / r - 1 / a doubling)",
+          got, genmul.gen_fold_plain(*tables, digits.long()))
+    want = cv.g1_from_device(tuple(c[:, 32:35] for c in got))
+    if want != [None, hm.g1_mul(hm.G1_GEN, hm.R - 1), hm.g1_mul(hm.G1_GEN, 2 * collide_sum())]:
+        raise AssertionError("gen_fold: the exceptional lanes differ from the host oracle")
+    xs, ys = gathered_entries(ctx, tables, digits)
+    check(ctx, f"fold_entries (W=32, C={FOLD_CHECK_LANES})", genmul.fold_entries(xs, ys), got)
+    check(ctx, f"fold_entries plain (W=32, C={FOLD_CHECK_LANES})",
+          genmul.fold_entries_plain(xs, ys), got)
+    for W in (128, CHECK_LANES):
+        p = special_points(ctx, W)[0]
+        for steps in (1, 5, DBL_STEPS):
+            check(ctx, f"dbl_chain (W={W}, steps={steps}, inf lanes)", cv.dbl_chain(p, steps),
+                  cv.dbl_chain_plain(p, steps))
+
     # K4: all four modes at W = 32 and W = 32768 (R = 3 and 1 rows)
     for R, W in ((3, 32), (1, 32768)):
         pts = [ctx.rand_field(FP, R * W).view(FP.L, R, W) for _ in range(3)]
@@ -266,7 +355,7 @@ def logging_calls():
     """Inside the block, count each outermost call of a kernel wrapper by its
     spec (kernel, shape, mode): what the replay needs to rebuild inputs of the
     same shapes. The wrappers are swapped in their modules and put back."""
-    from kzg_torch.ops import curve as cv, field as fld, msm, scans
+    from kzg_torch.ops import curve as cv, field as fld, genmul, msm, scans
 
     calls = collections.Counter()
     depth = [0]
@@ -280,6 +369,9 @@ def logging_calls():
         (scans, "scan_prefix_madd", lambda xs, ys, fast=True: ("scan_madd", tuple(xs.shape), fast)),
         (scans, "hs_scan_points", hs),
         (msm, "hs_scan_points", hs),
+        (genmul, "gen_fold", lambda tx, ty, digits: ("gen_fold", tuple(digits.shape))),
+        (genmul, "fold_entries", lambda xs, ys: ("fold_entries", tuple(xs.shape))),
+        (cv, "dbl_chain", lambda p, steps: ("dbl_chain", tuple(p[0].shape), steps)),
     ]
     originals = []
 
@@ -322,8 +414,9 @@ def drive(ctx, label, fn):
 
 def phase_paths(ctx):
     torch = ctx.torch
-    from kzg_torch import Polynomial
+    from kzg_torch import Polynomial, Scalar
     from kzg_torch.ops import curve as cv
+    from kzg_torch.ops import genmul
     from kzg_torch.ops.field import FR
     from kzg_torch.trusted_setup import DeviceSRS
     from kzg_torch.utils import hostmath as hm
@@ -336,29 +429,48 @@ def phase_paths(ctx):
         powers.append(pw)
         pw = pw * secret % hm.R
     coeffs = [rnd.randrange(hm.R) for _ in range(n)]
+    x_eval = rnd.randrange(hm.R)
 
     def oracle(k):
         return hm.g1_mul(hm.G1_GEN, sum(c * p for c, p in zip(coeffs[:k], powers[:k])) % hm.R)
 
-    # set-up, not counted: the SRS points s^i G1
+    # set-up, not counted: the SRS points s^i G1 by the double-and-add ladder,
+    # the ceremony's independent reference on the card
     k = FR.tensor(powers, ctx.device, mont=False)
     t_srs, srs_jac = ctx.time_once(
         lambda: cv.mul_scalar_affine(cv.g1_gen_affine(ctx.device, n), k))
-    t_aff, ((gx, gy), inf) = ctx.time_once(lambda: cv.to_affine(srs_jac))
+    t_aff, ((lx, ly), inf) = ctx.time_once(lambda: cv.to_affine(srs_jac))
     del srs_jac, k
     if bool(inf.any()):
-        raise AssertionError("SRS holds the point at infinity")
+        raise AssertionError("the ladder's SRS holds the point at infinity")
+    print(f"  set-up, ladder SRS 2^{LOG_N} points: ladder {t_srs:.1f} ms, to_affine "
+          f"{t_aff:.1f} ms", flush=True)
+
+    # ceremony path: the generator tables and the window fold, chunk by chunk
+    if genmul.tables_built(ctx.device):
+        raise AssertionError("the generator tables exist before the ceremony path")
+    def ceremony():
+        return genmul.chunked_srs_g1(secret, n, chunk=SRS_CHUNK, device=ctx.device)
+
+    t_cer, (gx, gy), cer_launches, cer_calls = drive(ctx, CEREMONY, ceremony)
+    if not (torch.equal(gx, lx) and torch.equal(gy, ly)):
+        bad = int(((gx != lx).any(0) | (gy != ly).any(0)).sum())
+        raise AssertionError(f"the ceremony's SRS differs from the ladder's on {bad} lanes")
+    del lx, ly
     spot = [0, 1, 2, n // 3, n - 1]
     got_spot = cv.g1_from_device((gx[:, spot], gy[:, spot], cv.FP.one_like(gx[:, spot])))
     if got_spot != [hm.g1_mul(hm.G1_GEN, powers[i]) for i in spot]:
         raise AssertionError("SRS points differ from s^i G1")
-    print(f"  set-up, SRS 2^{LOG_N} points: ladder {t_srs:.1f} ms, to_affine {t_aff:.1f} ms",
-          flush=True)
+    cer_warm = sorted(ctx.time_once(ceremony)[0] for _ in range(3))
+    print(f"  ceremony 2^{LOG_N}: {t_cer:.1f} ms first (table build included), median of 3 "
+          f"warm runs {cer_warm[1]:.1f} ms ({cer_warm}); equals the ladder on all {n} lanes "
+          f"and s^i G1 on lanes {spot}", flush=True)
 
-    # main path: table build and first commit at 2^20
+    # main path: table build and first commit at 2^20 against the ceremony's SRS
     srs = DeviceSRS(gx, gy, None, [], n)
     poly = Polynomial.from_ints(coeffs, device=ctx.device)
-    expected = oracle(n)
+    p_at_s = sum(c * p for c, p in zip(coeffs, powers)) % hm.R
+    expected = hm.g1_mul(hm.G1_GEN, p_at_s)
     torch.cuda.reset_peak_memory_stats()
 
     def main_path():
@@ -382,7 +494,27 @@ def phase_paths(ctx):
           f"{n / med * 1e3:.0f} points/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
 
-    # second path: the batched-affine commit below the fixed-base threshold
+    # proof path: evaluate at x, then pi = commit((P - y) / (X - x))
+    x = Scalar(x_eval)
+
+    def proof_path():
+        ev = poly.evaluate(x)
+        return ev, ev.generate_proof(poly, srs)
+
+    t_proof, (ev, proof), proof_launches, proof_calls = drive(ctx, PROOF, proof_path)
+    y = 0
+    for co in reversed(coeffs):
+        y = (y * x_eval + co) % hm.R
+    if ev.result.to_int() != y:
+        raise AssertionError("P(x) differs from the host's Horner value")
+    want = (p_at_s - y) * pow(secret - x_eval, -1, hm.R) % hm.R
+    if proof.affine() != hm.g1_mul(hm.G1_GEN, want):
+        raise AssertionError("the proof differs from the host oracle ((P(s) - y) / (s - x)) G1")
+    print(f"  proof 2^{LOG_N}: {t_proof:.1f} ms; y equals the host's P(x) and the proof "
+          f"((P(s) - y) / (s - x) mod r) G1", flush=True)
+    stages = phase_stages(ctx, secret, poly, x, srs)
+
+    # last path: the batched-affine commit below the fixed-base threshold
     ns = BATCHED_N
     small_srs = DeviceSRS(gx[:, :ns].contiguous(), gy[:, :ns].contiguous(), None, [], ns)
     small = Polynomial.from_ints(coeffs[:ns], device=ctx.device)
@@ -394,11 +526,47 @@ def phase_paths(ctx):
     print(f"  commit {ns}: equals the host oracle; median of 3 warm runs "
           f"{small_times[1]:.2f} ms ({small_times})", flush=True)
 
-    paths = {MAIN: (launches, calls), BATCHED: (small_launches, small_calls)}
-    return paths, {"srs_ms": t_srs, "to_affine_ms": t_aff, "tables_ms": t_tab,
+    paths = {CEREMONY: (cer_launches, cer_calls), MAIN: (launches, calls),
+             PROOF: (proof_launches, proof_calls), BATCHED: (small_launches, small_calls)}
+    return paths, {"ladder_srs_ms": t_srs, "ladder_to_affine_ms": t_aff,
+                   "ceremony_first_ms": t_cer, "ceremony_ms": cer_warm[1],
+                   "ceremony_runs_ms": cer_warm, "tables_ms": t_tab,
                    "first_commit_ms": t_path - t_tab, "commit_ms": med, "commit_runs_ms": times,
+                   "first_proof_ms": t_proof, "stages": stages,
                    "batched_first_commit_ms": t_small, "batched_commit_ms": small_times[1]
                    }, lambda: poly.commit(srs)
+
+
+def phase_stages(ctx, secret, poly, x, srs):
+    """Host-clock times of the ceremony's and the proof's stages, each run
+    alone after its path (warm): the ceremony's per chunk of 2^16 and
+    scaled to 2^20 by the chunk count, the proof's at 2^20."""
+    from kzg_torch import Polynomial
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops import genmul
+    from kzg_torch.ops import poly as polyops
+    from kzg_torch.ops.field import FR
+
+    chunks = (1 << LOG_N) // SRS_CHUNK
+    s_mont = FR.tensor([secret], ctx.device)[:, 0]
+    out = {}
+    out["ceremony_tables_ms"], _ = ctx.time_once(lambda: genmul._build_tables(ctx.device))
+    t, ladder = ctx.time_once(lambda: polyops.power_sequence(s_mont, SRS_CHUNK))
+    out["ceremony_powers_ms"] = t
+    k = FR.from_mont(ladder)
+    t, jac = ctx.time_once(lambda: genmul.mul_gen(k))
+    out["ceremony_fold_ms_per_chunk"], out["ceremony_fold_ms"] = t, t * chunks
+    t, _ = ctx.time_once(lambda: cv.to_affine(jac))
+    out["ceremony_to_affine_ms_per_chunk"], out["ceremony_to_affine_ms"] = t, t * chunks
+    t, ev = ctx.time_once(lambda: poly.evaluate(x))
+    out["proof_evaluate_ms"] = t
+    t, diff = ctx.time_once(lambda: poly.sub(Polynomial.from_constant(ev.result, ctx.device)))
+    out["proof_sub_ms"] = t
+    t, q = ctx.time_once(lambda: diff.divide_by_root(x))
+    out["proof_divide_ms"] = t
+    out["proof_quotient_msm_ms"], _ = ctx.time_once(lambda: q.commit(srs))
+    print("  stages: " + ", ".join(f"{key} {v:.2f}" for key, v in out.items()), flush=True)
+    return out
 
 
 def phase_profile(ctx, commit):
@@ -512,27 +680,64 @@ def replay_case(ctx, spec):
                 lambda: tuple(c.reshape(FP.L, R * W) for c in hs_plain(
                     ctx, tuple(c.view(FP.L, R, W) for c in pts), reverse, exclusive)),
                 6 * FP_BYTES * R * W, adds * 16 * FP_MUL_OPS)
+    if name in ("gen_fold", "fold_entries"):
+        from kzg_torch.ops import genmul
+
+        W, n = (shape[0], shape[1]) if name == "gen_fold" else (shape[0], shape[2])
+        tables = genmul.gen_tables(ctx.device)
+        digits = fold_digits(ctx, n)
+        # the madds these digits need: one per non-zero digit after a lane's first
+        nz = (digits != 0).sum(0)
+        n_ops = int((nz - (nz > 0).to(nz.dtype)).sum()) * 11 * FP_MUL_OPS
+        if name == "gen_fold":
+            return (lambda: genmul.gen_fold(*tables, digits),
+                    lambda: chunked(torch, lambda d: genmul.gen_fold_plain(*tables, d.long()),
+                                    (digits,), n),
+                    4 * W * n + 2 * FP_BYTES * W * 256 + 3 * FP_BYTES * n, n_ops)
+        xs, ys = gathered_entries(ctx, tables, digits)
+        return (lambda: genmul.fold_entries(xs, ys),
+                lambda: genmul.fold_entries_plain(xs, ys),
+                2 * FP_BYTES * W * n + 3 * FP_BYTES * n, n_ops)
+    if name == "dbl_chain":
+        steps = spec[2]
+        n = math.prod(shape[1:])
+        p = special_points(ctx, n)[0]
+        return (lambda: cv.dbl_chain(p, steps),
+                lambda: chunked(torch, lambda *q: cv.dbl_chain_plain(q, steps), p, n),
+                6 * FP_BYTES * n, 7 * steps * FP_MUL_OPS * n)
     raise ValueError(f"no replay for {spec}")
 
 
-def phase_replay(ctx, label, launches, calls):
-    """Per kernel of the path: ms, plain_ms, bytes and operations summed over
-    its logged calls (each distinct call replayed once, weighted by its
-    count). The launches the replays make per call, times the counts, must
-    add up to the path's own launches: the log missed no call."""
+def replay_one(ctx, spec, count):
+    """One distinct call: (launches per call, ms, plain_ms, max error, bytes,
+    operations)."""
     from kzg_torch.ops import _build
 
+    name = spec[0]
+    kern, plain, n_bytes, n_ops = replay_case(ctx, spec)
+    before = _build.LAUNCHES[name]
+    got = kern()
+    per_call = _build.LAUNCHES[name] - before
+    plain_ms, want = ctx.time_once(plain)
+    err = check(ctx, f"{name} {spec[1:]} x{count}", got, want)
+    ms = ctx.time_cuda(kern)
+    print(f"    {ms:.4f} ms kernel, {plain_ms:.1f} ms plain per call", flush=True)
+    return per_call, ms, plain_ms, err, n_bytes, n_ops
+
+
+def phase_replay(ctx, label, launches, calls, done):
+    """Per kernel of the path: ms, plain_ms, bytes and operations summed over
+    its logged calls (each distinct call replayed once, weighted by its
+    count; a call an earlier path made too is taken from ``done``). The
+    launches the replays make per call, times the counts, must add up to the
+    path's own launches: the log missed no call."""
     totals, seen = {}, collections.Counter()
     for spec, count in sorted(calls.items(), key=lambda kv: (kv[0][0], str(kv[0]))):
         name = spec[0]
-        kern, plain, n_bytes, n_ops = replay_case(ctx, spec)
-        before = _build.LAUNCHES[name]
-        got = kern()
-        seen[name] += (_build.LAUNCHES[name] - before) * count
-        plain_ms, want = ctx.time_once(plain)
-        err = check(ctx, f"{name} {spec[1:]} x{count}", got, want)
-        ms = ctx.time_cuda(kern)
-        print(f"    {ms:.4f} ms kernel, {plain_ms:.1f} ms plain per call", flush=True)
+        if spec not in done:
+            done[spec] = replay_one(ctx, spec, count)
+        per_call, ms, plain_ms, err, n_bytes, n_ops = done[spec]
+        seen[name] += per_call * count
         t = totals.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
                                      "err": 0, "calls": 0})
         t["ms"] += ms * count
@@ -576,6 +781,30 @@ def phase_exact_scan(ctx, calls):
     return res
 
 
+def phase_off_path(ctx):
+    """K8 and K7 have no caller on a path (the JAX package's callers are its
+    tests and a bench): each is checked against its plain version and timed
+    at fixed shapes, K8 at the ceremony's fold shape, K7 at the bench's
+    (128 lanes, 5 steps) and at 2^16 lanes and 16 steps, the one reported."""
+    from kzg_torch.ops.field import FP
+
+    out, extra = {}, {}
+    for spec in (("fold_entries", (32, FP.L, SRS_CHUNK)), ("dbl_chain", (FP.L, 128), 5),
+                 ("dbl_chain", (FP.L, CHECK_LANES), DBL_STEPS)):
+        kern, plain, n_bytes, n_ops = replay_case(ctx, spec)
+        plain_ms, want = ctx.time_once(plain)
+        err = check(ctx, f"{spec[0]} {spec[1:]}", kern(), want)
+        ms = ctx.time_cuda(kern)
+        b, by = bound_ms(n_bytes, n_ops)
+        print(f"    {ms:.4f} ms kernel, {plain_ms:.1f} ms plain, bound {b:.4f} ms ({by})",
+              flush=True)
+        if spec[0] in out:
+            extra[f"{spec[0]} {out[spec[0]]['shape']}"] = out[spec[0]]
+        out[spec[0]] = {"ms": ms, "plain_ms": plain_ms, "err": err, "calls": 1, "launches": 0,
+                        "bound_ms": b, "bound_by": by, "shape": str(spec[1:])}
+    return out, extra
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "kzg_torch", "csrc")):
@@ -612,27 +841,34 @@ def main() -> int:
     phase_kernels(ctx)
     print("== paths", flush=True)
     paths, times, commit = phase_paths(ctx)
-    per_path = {}
+    per_path, done = {}, {}
     for label, (launches, calls) in paths.items():
         print(f"== replay: {label}", flush=True)
-        per_path[label] = phase_replay(ctx, label, launches, calls)
+        per_path[label] = phase_replay(ctx, label, launches, calls, done)
     print("== the exact scan beside the fast one", flush=True)
     times["scan_modes"] = phase_exact_scan(ctx, paths[MAIN][1])
+    print("== the kernels no path launches: K8, K7", flush=True)
+    off_path, times["off_path_other_shapes"] = phase_off_path(ctx)
     # last, so that no timing above runs after the profiler
     print("== profile: one warm 2^20 commit", flush=True)
     times["profile"] = phase_profile(ctx, commit)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        label = next((lb for lb, t in per_path.items() if name in t), None)
-        if label is None:
+        # each kernel's numbers come from the first of these paths that runs it;
+        # its launches on every path stand beside them
+        label = next((lb for lb in (MAIN, CEREMONY, PROOF, BATCHED) if name in per_path[lb]),
+                     None)
+        if label is None and name not in off_path:
             return fail(f"{name} was launched on no path")
-        t = per_path[label][name]
+        t = per_path[label][name] if label is not None else off_path[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": t["launches"], "max_abs_err": t["err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "path": label, "calls": t["calls"],
+            "library_ms": None, "path": label or f"none: timed at {t['shape']}",
+            "calls": t["calls"],
+            "launches_by_path": {lb: paths[lb][0].get(name, 0) for lb in paths},
         })
     print(json.dumps({"slice_ms": times, "card": card,
                       "paths": {lb: {k: {f: v for f, v in t.items() if f != "err"}

@@ -7,7 +7,7 @@ The kernels (``csrc/``) are built with nvcc on first use.
 
 from .curves import G1Point
 from .errors import CliError, KzgError, ProtocolError, SerializationError
-from .polynomial import Polynomial
+from .polynomial import Evaluation, Polynomial
 from .scalar import Scalar
 from .trusted_setup import DeviceSRS, SetupArtifact
 
@@ -17,6 +17,7 @@ __all__ = [
     "KzgError",
     "ProtocolError",
     "SerializationError",
+    "Evaluation",
     "Polynomial",
     "Scalar",
     "DeviceSRS",

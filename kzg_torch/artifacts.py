@@ -1,10 +1,12 @@
 """Artifact persistence, byte-compatible with the reference's JSON files
-(./artifacts/{setup,commitment}.json; src/main.rs:101-104,310-320), as in
+(./artifacts/{setup,commitment,evaluation}.json; src/main.rs:101-104,310-320), as in
 ``kzg_tpu/artifacts.py``.
 
   setup.json      = [{"g1": [48 u8], "g2": [96 u8]}, ...]
   commitment.json = {"polynomial": {"coefficients": [[32 u8 LE] ...]},
                      "commitment": [48 u8]}
+  evaluation.json = {"evaluation": {"point": [32 u8], "result": [32 u8]},
+                     "proof": [48 u8]}
 
 Setup points are decompressed one by one on the host; the batched device
 decompression of large setups is a later slice of the port.
@@ -18,11 +20,12 @@ from dataclasses import dataclass
 
 from .curves import G1Point
 from .errors import CliError
-from .polynomial import Polynomial
+from .polynomial import Evaluation, Polynomial
 from .trusted_setup import SetupArtifact
 
 SETUP_ARTIFACTS_PATH = "./artifacts/setup.json"
 COMMITMENT_ARTIFACTS_PATH = "./artifacts/commitment.json"
+EVALUATION_ARTIFACTS_PATH = "./artifacts/evaluation.json"
 
 
 def dumps(obj) -> str:
@@ -56,6 +59,22 @@ class CommitmentArtifact:
         )
 
 
+@dataclass
+class EvaluationArtifact:
+    evaluation: Evaluation
+    proof: G1Point
+
+    def to_json(self) -> dict:
+        return {"evaluation": self.evaluation.to_json(), "proof": self.proof.to_json()}
+
+    @classmethod
+    def from_json(cls, data: dict) -> "EvaluationArtifact":
+        return cls(
+            evaluation=Evaluation.from_json(data["evaluation"]),
+            proof=G1Point.from_json(data["proof"]),
+        )
+
+
 def save_setup(artifacts: list[SetupArtifact], path: str = SETUP_ARTIFACTS_PATH):
     write_file(path, dumps([a.to_json() for a in artifacts]))
 
@@ -76,3 +95,14 @@ def load_commitment(path: str = COMMITMENT_ARTIFACTS_PATH, device=None) -> Commi
         raise CliError("Commitment artifact has not been found, generate it beforehand.")
     with open(path) as f:
         return CommitmentArtifact.from_json(json.load(f), device)
+
+
+def save_evaluation(artifact: EvaluationArtifact, path: str = EVALUATION_ARTIFACTS_PATH):
+    write_file(path, dumps(artifact.to_json()))
+
+
+def load_evaluation(path: str = EVALUATION_ARTIFACTS_PATH) -> EvaluationArtifact:
+    if not os.path.exists(path):
+        raise CliError("Evaluation artifact has not been found, generate it beforehand.")
+    with open(path) as f:
+        return EvaluationArtifact.from_json(json.load(f))

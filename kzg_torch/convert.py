@@ -50,3 +50,10 @@ def tables_from_jax(tx, ty, device=None):
     (tx, ty, y_pm), ready for ops.msm.msm_g1_fixed."""
     device = resolve_device(device)
     return msmops.signed_tables((from_jax_limbs(tx, device), from_jax_limbs(ty, device)))
+
+
+def gen_tables_from_jax(tx, ty, device=None):
+    """The JAX package's G1 generator tables, (24, 32, 256) uint32 limbs
+    each, -> the port's (12, 32, 256) words, ready for ops.genmul.mul_gen."""
+    device = resolve_device(device)
+    return from_jax_limbs(tx, device), from_jax_limbs(ty, device)

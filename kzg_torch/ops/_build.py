@@ -42,6 +42,9 @@ SIGNATURES = {
     "kzg_scan_madd": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "kzg_hs_scan_block": [_P] * 9 + [_I, _I, _I, _P],
     "kzg_hs_scan_offset": [_P] * 6 + [_I, _I, _I, _P],
+    "kzg_gen_fold": [_P] * 6 + [_I, _P],
+    "kzg_fold_entries": [_P] * 5 + [_I, _I, _P],
+    "kzg_dbl_chain": [_P] * 6 + [_I, _I, _P],
 }
 
 _lib = None

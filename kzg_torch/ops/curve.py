@@ -260,6 +260,34 @@ def g1_madd(p, q_affine, fast: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# K7: the doubling chain
+# ---------------------------------------------------------------------------
+
+
+def dbl_chain_plain(p, steps: int):
+    """Plain K7: ``steps`` doublings, 2^steps p."""
+    for _ in range(steps):
+        p = g1_double_plain(p)
+    return p
+
+
+def dbl_chain(p, steps: int):
+    """K7: 2^steps p for a Jacobian (12, *batch) p, steps >= 0. CPU tensors
+    take the plain version; CUDA tensors launch ``kzg_dbl_chain``
+    (csrc/dbl_chain.cu), which keeps the point in registers between steps."""
+    if steps < 0:
+        raise ValueError("steps must be >= 0")
+    if p[0].device.type == "cpu":
+        return dbl_chain_plain(p, steps)
+    flat, shape, n = _flat(p)
+    out = tuple(torch.empty_like(c) for c in flat)
+    if n:
+        _build.launch("dbl_chain", "kzg_dbl_chain", *(c.data_ptr() for c in flat + out),
+                      steps, n)
+    return tuple(o.reshape(shape) for o in out)
+
+
+# ---------------------------------------------------------------------------
 # The G1 group on word tensors
 # ---------------------------------------------------------------------------
 

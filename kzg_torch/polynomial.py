@@ -9,8 +9,10 @@ exactly:
     empty input gives the zero polynomial with degree() == 0
     (src/polynomial.rs:55-100)
   - at most 2^32 - 1 coefficients (src/polynomial.rs:56-61)
+  - divide_by_root rejects a constant non-zero polynomial and a non-root
+    through the rebuilt-constant-term check (src/polynomial.rs:159-192)
   - commit requires degree + 1 <= len(setup) (src/polynomial.rs:201-205)
-Evaluation, division and proofs are later slices of the port.
+Verifying a proof needs the pairing, a later slice of the port.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from .curves import G1Point
 from .errors import ProtocolError
 from .ops import curve as cv
 from .ops import msm as msmops
+from .ops import poly as polyops
 from .ops.field import FR
 from .scalar import Scalar
 from .utils import hostmath as hm
@@ -69,6 +72,17 @@ class Polynomial:
             return cls.from_ints([], device)
         return cls.from_ints([a.to_int()], device)
 
+    @classmethod
+    def _from_mont_words(cls, coeffs: torch.Tensor) -> "Polynomial":
+        """The reference's normalization of a computed coefficient vector:
+        truncate after the last non-zero coefficient (an all-zero non-empty
+        vector keeps one zero)."""
+        if coeffs.shape[1] == 0:
+            return cls(coeffs)
+        nz = (coeffs != 0).any(dim=0).nonzero()
+        last = int(nz[-1]) + 1 if nz.numel() else 1
+        return cls(coeffs[:, :last].contiguous())
+
     # -- views ----------------------------------------------------------------------
 
     @property
@@ -94,6 +108,40 @@ class Polynomial:
     def coeffs_mont(self) -> torch.Tensor:
         """(8, n) Montgomery words: the kernel-facing view."""
         return self._coeffs
+
+    # -- algebra ----------------------------------------------------------------------
+
+    def evaluate(self, x: Scalar) -> "Evaluation":
+        """P(x): powers, one batched multiply, a tree sum."""
+        y = polyops.evaluate(self._coeffs, x.mont(self.device))
+        return Evaluation(point=x, result=Scalar(FR.from_words_many(y.reshape(FR.L, 1))[0]))
+
+    def sub(self, other: "Polynomial") -> "Polynomial":
+        """Coefficient-wise difference (the shorter one zero-padded),
+        renormalized."""
+        a, b = self._coeffs, other._coeffs
+        n = max(a.shape[1], b.shape[1])
+        a = torch.nn.functional.pad(a, (0, n - a.shape[1]))
+        b = torch.nn.functional.pad(b, (0, n - b.shape[1]))
+        return Polynomial._from_mont_words(FR.sub(a, b))
+
+    def divide_by_root(self, root: Scalar) -> "Polynomial":
+        """The quotient of the exact division by (x - root); raises
+        ProtocolError when root is not a root."""
+        n = self.num_coefficients
+        if n == 0:
+            return Polynomial(self._coeffs)
+        if n == 1:
+            # a lone zero coefficient is the zero polynomial (src/polynomial.rs:159-167)
+            if not bool(self._coeffs.any()):
+                return Polynomial(self._coeffs[:, :0])
+            raise ProtocolError("Unable to divide a constant polynomial")
+        quotient, rebuilt = polyops.synthetic_divide(self._coeffs, root.mont(self.device))
+        if not torch.equal(rebuilt, self._coeffs[:, 0]):
+            raise ProtocolError(
+                "[divide_by_root] Fail to divide the polynomial by a root, constant terms do not add up"
+            )
+        return Polynomial._from_mont_words(quotient)
 
     # -- commitment -------------------------------------------------------------------
 
@@ -136,3 +184,29 @@ class Polynomial:
     @classmethod
     def from_json(cls, data: dict, device=None) -> "Polynomial":
         return cls.from_scalars([Scalar.from_json(c) for c in data["coefficients"]], device)
+
+
+class Evaluation:
+    """{point, result} evaluation record (src/polynomial.rs:249-295)."""
+
+    __slots__ = ("point", "result")
+
+    def __init__(self, point: Scalar, result: Scalar):
+        self.point = point
+        self.result = result
+
+    def generate_proof(self, polynomial: Polynomial, setup) -> G1Point:
+        """pi = commit((P - y) / (x - point)) (src/polynomial.rs:260-269);
+        the quotient's commit takes the same routes as Polynomial.commit."""
+        constant = Polynomial.from_constant(self.result, polynomial.device)
+        return polynomial.sub(constant).divide_by_root(self.point).commit(setup)
+
+    def to_json(self) -> dict:
+        return {"point": self.point.to_json(), "result": self.result.to_json()}
+
+    @classmethod
+    def from_json(cls, data: dict) -> "Evaluation":
+        return cls(point=Scalar.from_json(data["point"]), result=Scalar.from_json(data["result"]))
+
+    def __repr__(self):
+        return f"Evaluation(point={self.point}, result={self.result})"

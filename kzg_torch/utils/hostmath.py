@@ -74,6 +74,15 @@ def g1_mul(p, k: int):
     return _mul_unreduced(p, k % R)
 
 
+def g1_pow2_multiples(p, n: int) -> list:
+    """[2^j p for j < n]: one chain of n - 1 doublings (the generator
+    tables' level bases are 2^(8w + k) G for 256 exponents)."""
+    out = [p]
+    for _ in range(n - 1):
+        out.append(g1_add(out[-1], out[-1]))
+    return out
+
+
 def g1_neg(p):
     return None if p is None else (p[0], -p[1] % P)
 

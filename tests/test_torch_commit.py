@@ -142,7 +142,8 @@ def test_jax_state_converts_both_ways():
 
 
 def test_import_pulls_in_neither_jax_nor_kzg_tpu():
-    code = ("import sys, kzg_torch, kzg_torch.artifacts, kzg_torch.convert, kzg_torch.ops.scans;"
+    code = ("import sys, kzg_torch, kzg_torch.artifacts, kzg_torch.convert, kzg_torch.ops.scans,"
+            " kzg_torch.ops.genmul, kzg_torch.ops.poly;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'kzg_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

@@ -4,7 +4,7 @@ device. Run on a machine with a card:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu
 
-(``chip_smoke.py`` runs the same comparisons at the 2^20 commit's shapes.)
+(``chip_smoke.py`` runs the same comparisons at the 2^20 paths' shapes.)
 """
 
 import numpy as np
@@ -13,8 +13,9 @@ import torch
 
 from kzg_torch.ops import curve as cv
 from kzg_torch.ops import field as fld
-from kzg_torch.ops import scans
+from kzg_torch.ops import genmul, scans
 from kzg_torch.ops.field import FP, FR
+from kzg_torch.utils import hostmath as hm
 
 pytestmark = pytest.mark.gpu
 
@@ -79,3 +80,31 @@ def test_hs_scan_kernel_matches_plain(cuda, W):
     for reverse in (False, True):
         got = scans.hs_scan_points(*pts, reverse=reverse)
         assert _same(got, scans.hs_scan_points_plain(*pts, reverse=reverse))
+
+
+def test_fold_kernels_match_plain(cuda):
+    """K5 and K8 on seeded digits with a zero digit in every window, k = 0
+    and k = r - 1 lanes."""
+    tx, ty = genmul.gen_tables(cuda)
+    rng = np.random.default_rng(14)
+    digits = torch.from_numpy(rng.integers(0, 256, (32, 300)).astype(np.int32)).to(cuda)
+    diag = torch.arange(32, device=cuda)
+    digits[diag, diag] = 0
+    digits[:, 32] = 0
+    digits[:, 33] = genmul._digits8(FR.tensor([hm.R - 1], cuda, mont=False))[:, 0]
+    got = genmul.gen_fold(tx, ty, digits)
+    assert _same(got, genmul.gen_fold_plain(tx, ty, digits.long()))
+    w = torch.arange(32, device=cuda)[:, None]
+    xs = tx[:, w, digits.long()].permute(1, 0, 2)
+    ys = ty[:, w, digits.long()].permute(1, 0, 2)
+    assert _same(genmul.fold_entries(xs, ys), got)
+    assert _same(genmul.fold_entries_plain(xs, ys), got)
+    assert cv.g1_from_device(tuple(c[:, 32:34] for c in got)) == [
+        None, hm.g1_mul(hm.G1_GEN, hm.R - 1)]
+
+
+@pytest.mark.parametrize("steps", [1, 5, 16])
+def test_dbl_chain_kernel_matches_plain(cuda, steps):
+    p = tuple(_rand(FP, 200, s).to(cuda) for s in (15, 16, 17))
+    p[2][:, 7:9] = 0
+    assert _same(cv.dbl_chain(p, steps), cv.dbl_chain_plain(p, steps))
