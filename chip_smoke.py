@@ -7,14 +7,19 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every kernel of kzg_torch/csrc, compiled with nvcc (one process per
-   source, in parallel) into build/kzg_torch_kernels/.
+   source, in parallel) into build/kzg_torch_kernels/; each kernel's
+   registers a thread, spills and shared memory from -Xptxas -v.
 3. kernels: each kernel against its plain PyTorch version on the card on
-   seeded inputs with the exceptional cases (P == Q, P == -Q and infinity
-   lanes, an odd C < 64 scan with a P == Q step, every K4 mode; for the
-   window fold a zero digit in every window position, an all-zero scalar,
-   k = r - 1 and a lane whose partial sum equals its next table entry, so
-   that the exact madd doubles; the doubling chain at 1, 5 and 16 steps);
-   the expected result is bit-identical output.
+   seeded inputs with the exceptional cases (the multiply on every pair of
+   p - 1, 0, 1 and R mod p; P == Q, P == -Q and infinity lanes, an odd
+   C < 64 streaming scan with a P == Q step, every K4 mode; for the fused
+   scan digit 0, absent digits, a run across chunks, a chunk of one digit
+   and P == Q / P == -Q at a chunk's start, also against the streaming path
+   it replaced; for the window fold a zero digit in every window position,
+   an all-zero scalar, k = r - 1 and a lane whose partial sum equals its
+   next table entry, so that the exact madd doubles; the doubling chain at
+   1, 5 and 16 steps and in windows); the expected result is bit-identical
+   output.
 4. paths, each driven through the entry points with the launch counts set to
    0 just before and read just after, and every call of a kernel wrapper
    logged with its shapes:
@@ -24,7 +29,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      double-and-add ladder and to_affine make (set-up, not counted), and the
      host oracle s^i G1 on spot lanes.
    - main: the fixed-base commit at n = 2^20 against the ceremony's SRS:
-     DeviceSRS.fixed_tables() and the first Polynomial.commit.
+     DeviceSRS.fixed_tables() and the first Polynomial.commit. The table
+     build must launch the windowed doubling chain once and no 2^20-lane
+     g1_double; the commit the fused scan and not the streaming one.
    - proof: Polynomial.evaluate at a seeded x and Evaluation.generate_proof
      (sub, divide_by_root, the quotient's commit against the same tables).
      y must equal the host's Horner value P(x), and the proof
@@ -37,11 +44,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    against plain version (bit-identical), then timed by CUDA events. A
    kernel's ms, plain_ms and bound are sums over the calls its path made.
    The kernels no path launches are checked and timed at fixed shapes: the
-   exact scan at the main path's scan shape beside the fast one, the fold
-   over pre-gathered entries (K8) at the ceremony's fold shape, and the
-   doubling chain (K7) at 2^16 lanes and 16 steps. Then the stage times of
-   the ceremony and of the proof.
-6. profile: one warm 2^20 commit under torch.profiler, device time by kernel.
+   streaming scan in both modes at the shape the fused scan ran on the main
+   path (m steps over C chunks), the fold over pre-gathered entries (K8) at
+   the ceremony's fold shape, and the doubling chain (K7) at 2^16 lanes and
+   16 steps. Then the stage times of the ceremony and of the proof.
+6. profile: one warm 2^20 commit under torch.profiler, device time by kernel;
+   the commit's index gathers must take less than one 805 MB table gather
+   would at the card's memory rate (the scan reads its own table points).
 7. a line {"kernels": [...]}, then the last line {"ok": true, "device": ...}.
 
 Bounds: the larger of bytes moved / 3.35 TB/s (H100 SXM HBM3) and 32-bit
@@ -53,7 +62,12 @@ two 32-bit multiply-adds, so an Fp Montgomery multiply (12 words, CIOS) is
 is 16 Fp multiplies, a mixed add 11, a doubling 7; a prefix sum of W points
 needs W - 1 adds (W - 2 when exclusive), whatever order a kernel adds in; a
 fold needs one mixed add per non-zero entry after a lane's first (the first
-is a copy), counted on the inputs of the run.
+is a copy), counted on the inputs of the run. The fused scan over P pairs in
+C chunks needs P - C mixed adds (a chunk's first is a copy) and moves 96 P
+bytes of table rows, 8 P of keys and digits, and 3 * 48 (C + 2^15 + 1) of
+totals and bucket slots; the windowed chain over n lanes needs 7 Fp
+multiplies per doubling, (first + steps (windows - 1)) doublings a lane, and
+moves 96 n bytes in and 144 n a window out.
 """
 
 from __future__ import annotations
@@ -88,10 +102,23 @@ KERNELS = {
     "g1_add": ("kzg_torch/csrc/g1_point.cu", "kzg_tpu/ops/pallas_curve.py:260"),
     "g1_madd": ("kzg_torch/csrc/g1_point.cu", "kzg_tpu/ops/pallas_curve.py:260"),
     "scan_madd": ("kzg_torch/csrc/scan_madd.cu", "kzg_tpu/ops/pallas_msm25.py:360"),
+    "scan_buckets": ("kzg_torch/csrc/scan_madd.cu", "kzg_tpu/ops/pallas_msm25.py:387"),
     "hs_scan_points": ("kzg_torch/csrc/hs_scan.cu", "kzg_tpu/ops/pallas_msm.py:280"),
     "gen_fold": ("kzg_torch/csrc/gen_fold.cu", "kzg_tpu/ops/pallas_msm25.py:445"),
     "fold_entries": ("kzg_torch/csrc/gen_fold.cu", "kzg_tpu/ops/pallas_msm.py:396"),
     "dbl_chain": ("kzg_torch/csrc/dbl_chain.cu", "kzg_tpu/ops/pallas_msm.py:336"),
+    "dbl_windows": ("kzg_torch/csrc/dbl_chain.cu", "kzg_tpu/ops/pallas_msm.py:336"),
+}
+# kernel -> its CUDA functions in the -Xptxas -v report
+DEVICE_FUNCTIONS = {
+    "mont_mul_fp": ["mont_mul_kernel<12>"], "mont_mul_fr": ["mont_mul_kernel<8>"],
+    "g1_double": ["g1_double_kernel"], "g1_add": ["g1_add_kernel"],
+    "g1_madd": ["g1_madd_kernel"],
+    "scan_madd": ["scan_madd_kernel<true>", "scan_madd_kernel<false>"],
+    "scan_buckets": ["scan_buckets_kernel"],
+    "hs_scan_points": ["hs_block_kernel", "hs_offset_kernel"],
+    "gen_fold": ["gen_fold_kernel"], "fold_entries": ["fold_entries_kernel"],
+    "dbl_chain": ["dbl_chain_kernel"], "dbl_windows": ["dbl_chain_kernel"],
 }
 SRS_CHUNK = 1 << 16  # the chunk bench.py passes to the JAX package's ceremony
 DBL_STEPS = 16
@@ -102,8 +129,9 @@ BATCHED = f"batched-affine commit {BATCHED_N}"
 # the kernels each path must launch
 PATH_KERNELS = {
     CEREMONY: {"mont_mul_fp", "mont_mul_fr", "g1_madd", "gen_fold"},
-    MAIN: {"mont_mul_fp", "mont_mul_fr", "g1_double", "g1_add", "scan_madd", "hs_scan_points"},
-    PROOF: {"mont_mul_fr", "g1_double", "g1_add", "scan_madd", "hs_scan_points"},
+    MAIN: {"mont_mul_fp", "mont_mul_fr", "dbl_windows", "g1_double", "g1_add", "scan_buckets",
+           "hs_scan_points"},
+    PROOF: {"mont_mul_fr", "g1_double", "g1_add", "scan_buckets", "hs_scan_points"},
     BATCHED: {"mont_mul_fr", "g1_double", "g1_add", "g1_madd"},
 }
 
@@ -255,6 +283,55 @@ def fold_digits(ctx, n: int):
     return d
 
 
+def scan_case(ctx, rows: int, m: int, C: int):
+    """Keys and sorted digits for the fused scan over a table of ``rows``
+    rows, seeded: digit 0 first, a run of 2m + 3 equal digits (a whole chunk
+    of one digit and runs across chunk boundaries), absent digits, negative
+    digits throughout, and (for C >= 4) at the start of chunk 2 a pair equal
+    to its predecessor (P == Q) and at chunk 3 its negation (P == -Q)."""
+    torch = ctx.torch
+    P = m * C
+    row = torch.randint(0, rows, (P,), dtype=torch.int32, device=ctx.device, generator=ctx.gen)
+    neg = torch.randint(0, 2, (P,), device=ctx.device, generator=ctx.gen).bool()
+    if C >= 4:
+        row[2 * m + 1], neg[2 * m + 1] = row[2 * m], neg[2 * m]
+        row[3 * m + 1], neg[3 * m + 1] = row[3 * m], ~neg[3 * m]
+    keys = torch.where(neg, row | -(1 << 31), row)
+    rest = torch.randint(10, 1 << 15, (P - 2 * m - 8,), dtype=torch.int32, device=ctx.device,
+                         generator=ctx.gen)
+    digits = torch.cat([torch.zeros(5, dtype=torch.int32, device=ctx.device),
+                        torch.full((2 * m + 3,), 9, dtype=torch.int32, device=ctx.device), rest])
+    return keys, torch.sort(digits)[0]
+
+
+def two_step_scan(ctx, table, keys, ds, m: int):
+    """The path the fused scan replaced, on the card: gather the table
+    points (y negated for a negative digit), the exact streaming scan (every
+    prefix), then the chunk totals and the prefix at each digit's last
+    position, in the fused scan's (totals, U) form."""
+    torch = ctx.torch
+    from kzg_torch.ops import scans
+    from kzg_torch.ops.field import FP
+
+    P = keys.numel()
+    C = P // m
+    rows = (keys & 0x7FFFFFFF).long()
+    x = table[rows, : FP.L].t()
+    y = FP.select(keys < 0, FP.neg(table[rows, FP.L :].t().contiguous()), table[rows, FP.L :].t())
+    # (m, 12, C) streams with the kernel's strides: stream[j, :, c] = pair c m + j
+    xs, ys = (torch.empty(m, FP.L, C, dtype=torch.int32, device=ctx.device).copy_(
+        v.reshape(FP.L, C, m).permute(2, 0, 1)) for v in (x, y))
+    runs, _ = scans.scan_prefix_madd(xs, ys, fast=False)
+    last = torch.ones(P, dtype=torch.bool, device=ctx.device)
+    last[:-1] = ds[1:] != ds[:-1]
+    p = last.nonzero().squeeze(1)
+    U = tuple(torch.zeros(FP.L, scans.N_BUCKET_SLOTS, dtype=torch.int32, device=ctx.device)
+              for _ in range(3))
+    for u, r in zip(U, runs):
+        u[:, ds[p].long()] = r[p % m, :, p // m].t()
+    return tuple(r[-1] for r in runs), U
+
+
 def gathered_entries(ctx, tables, digits):
     """The (32, 12, n) x and y entry streams T[w][digits[w]]: K8's input."""
     tx, ty = tables
@@ -278,11 +355,13 @@ def phase_kernels(ctx):
 
     n = CHECK_LANES
     for F in (FP, FR):
+        # first: every pair of N - 1, 0, 1 and R mod N (words as given), the
+        # carry chains' extremes
         a, b = ctx.rand_field(F, n), ctx.rand_field(F, n)
-        edge = F.tensor([0, 1, F.modulus - 1], ctx.device)
-        a[:, :3] = edge
-        b[:, :3] = edge.flip(1)
-        check(ctx, f"mont_mul {F.name} (L={F.L}, n={n}, 0 / 1 / N-1 lanes)",
+        edge = [F.modulus - 1, 0, 1, F.R_int % F.modulus]
+        a[:, :16] = F.tensor([x for x in edge for _ in edge], ctx.device, mont=False)
+        b[:, :16] = F.tensor([y for _ in edge for y in edge], ctx.device, mont=False)
+        check(ctx, f"mont_mul {F.name} (L={F.L}, n={n}, N-1 / 0 / 1 / R mod N pairs)",
               fld.mont_mul(a, b, F), fld.mont_mul_plain(a, b, F))
 
     p, q = special_points(ctx, n)
@@ -313,6 +392,21 @@ def phase_kernels(ctx):
         if fast and not (bool(flag) and bool(want_flag)):
             raise AssertionError("scan fast: the needs-double flag was not raised")
 
+    # the fused K3 on the same kinds of stream, against its plain version
+    # and against the streaming path it replaced
+    from kzg_torch.ops import msm
+
+    tab_rows = 64
+    table = msm.point_table((ctx.rand_field(FP, tab_rows), ctx.rand_field(FP, tab_rows)))
+    for m_small, c_small in ((8, 37), (16, 5), (1, 40)):
+        keys, ds = scan_case(ctx, tab_rows, m_small, c_small)
+        got = scans.scan_buckets(table, keys, ds, m_small)
+        check(ctx, f"scan_buckets (m={m_small}, C={c_small}, digit 0 / absent / runs across "
+              f"chunks / one-digit chunk / P == Q / P == -Q)", got,
+              scans.scan_buckets_plain(table, keys, ds, m_small))
+        check(ctx, f"scan_buckets against the streaming path (m={m_small}, C={c_small})", got,
+              two_step_scan(ctx, table, keys, ds, m_small))
+
     # K5 / K8 on a fold with every exceptional lane, K7 at 1, 5 and 16 steps
     from kzg_torch.ops import genmul
 
@@ -333,6 +427,9 @@ def phase_kernels(ctx):
         for steps in (1, 5, DBL_STEPS):
             check(ctx, f"dbl_chain (W={W}, steps={steps}, inf lanes)", cv.dbl_chain(p, steps),
                   cv.dbl_chain_plain(p, steps))
+        for steps, windows in ((1, 3), (DBL_STEPS, 2)):
+            check(ctx, f"dbl_windows (W={W}, steps={steps}, windows={windows})",
+                  cv.dbl_windows(p[:2], steps, windows), cv.dbl_windows_plain(p[:2], steps, windows))
 
     # K4: all four modes at W = 32 and W = 32768 (R = 3 and 1 rows)
     for R, W in ((3, 32), (1, 32768)):
@@ -355,7 +452,7 @@ def logging_calls():
     """Inside the block, count each outermost call of a kernel wrapper by its
     spec (kernel, shape, mode): what the replay needs to rebuild inputs of the
     same shapes. The wrappers are swapped in their modules and put back."""
-    from kzg_torch.ops import curve as cv, field as fld, genmul, msm, scans
+    from kzg_torch.ops import curve as cv, field as fld, genmul, scans
 
     calls = collections.Counter()
     depth = [0]
@@ -367,11 +464,14 @@ def logging_calls():
         (cv, "g1_add", lambda p, q: ("g1_add", tuple(p[0].shape))),
         (cv, "g1_madd", lambda p, q, fast=False: ("g1_madd", tuple(p[0].shape), fast)),
         (scans, "scan_prefix_madd", lambda xs, ys, fast=True: ("scan_madd", tuple(xs.shape), fast)),
+        (scans, "scan_buckets", lambda table, keys, ds, m, nb=scans.N_BUCKET_SLOTS: (
+            "scan_buckets", tuple(table.shape), tuple(keys.shape), m, nb)),
         (scans, "hs_scan_points", hs),
-        (msm, "hs_scan_points", hs),
         (genmul, "gen_fold", lambda tx, ty, digits: ("gen_fold", tuple(digits.shape))),
         (genmul, "fold_entries", lambda xs, ys: ("fold_entries", tuple(xs.shape))),
         (cv, "dbl_chain", lambda p, steps: ("dbl_chain", tuple(p[0].shape), steps)),
+        (cv, "dbl_windows", lambda p, steps, windows: (
+            "dbl_windows", tuple(p[0].shape), steps, windows)),
     ]
     originals = []
 
@@ -478,10 +578,18 @@ def phase_paths(ctx):
         return t_tab, poly.commit(srs)
 
     t_path, (t_tab, c), launches, calls = drive(ctx, MAIN, main_path)
+    wide_doubles = [spec for spec in calls if spec[0] == "g1_double" and spec[1][-1] >= n]
+    if launches.get("dbl_windows") != 1 or wide_doubles:
+        raise AssertionError(f"the table build made {launches.get('dbl_windows', 0)} windowed "
+                             f"chain launches and 2^{LOG_N}-lane doublings {wide_doubles}")
+    if launches.get("scan_madd"):
+        raise AssertionError("the commit launched the streaming scan")
     if c.affine() != expected:
         raise AssertionError("commit differs from the host oracle (sum a_i s^i mod r) G1")
     print(f"  table build {t_tab:.1f} ms, first commit {t_path - t_tab:.1f} ms; equals the host "
           f"oracle (sum a_i s^i mod r) G1", flush=True)
+    peak_path = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(3):
         dt, c2 = ctx.time_once(lambda: poly.commit(srs))
@@ -490,9 +598,10 @@ def phase_paths(ctx):
             raise AssertionError("a warm commit differs from the oracle")
     times.sort()
     med = times[1]
+    peak_commit = torch.cuda.max_memory_allocated() / 2**30
     print(f"  commit 2^{LOG_N}: median of 3 warm runs {med:.1f} ms ({times}), "
-          f"{n / med * 1e3:.0f} points/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+          f"{n / med * 1e3:.0f} points/s; peak memory {peak_path:.2f} GiB over the table build "
+          f"and first commit, {peak_commit:.2f} GiB over the warm commits", flush=True)
 
     # proof path: evaluate at x, then pi = commit((P - y) / (X - x))
     x = Scalar(x_eval)
@@ -502,6 +611,8 @@ def phase_paths(ctx):
         return ev, ev.generate_proof(poly, srs)
 
     t_proof, (ev, proof), proof_launches, proof_calls = drive(ctx, PROOF, proof_path)
+    if proof_launches.get("scan_madd"):
+        raise AssertionError("the proof launched the streaming scan")
     y = 0
     for co in reversed(coeffs):
         y = (y * x_eval + co) % hm.R
@@ -532,6 +643,7 @@ def phase_paths(ctx):
                    "ceremony_first_ms": t_cer, "ceremony_ms": cer_warm[1],
                    "ceremony_runs_ms": cer_warm, "tables_ms": t_tab,
                    "first_commit_ms": t_path - t_tab, "commit_ms": med, "commit_runs_ms": times,
+                   "peak_gib_tables_and_first_commit": peak_path, "peak_gib_warm_commits": peak_commit,
                    "first_proof_ms": t_proof, "stages": stages,
                    "batched_first_commit_ms": t_small, "batched_commit_ms": small_times[1]
                    }, lambda: poly.commit(srs)
@@ -596,7 +708,15 @@ def phase_profile(ctx, commit):
           flush=True)
     for ms, count, key in rows[:20]:
         print(f"    {ms:9.3f} ms  x{count:<5} {key[:100]}", flush=True)
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+    # the table-point gathers the fused scan replaced wrote (12, 16 n) words
+    # each: one alone takes at least this long at the card's memory rate
+    gather_ms = sum(ms for ms, _, key in rows if "index_elementwise" in key)
+    one_table_gather_ms = 12 * 4 * 16 * (1 << LOG_N) / HBM_BYTES_PER_S * 1e3
+    print(f"  index gathers {gather_ms:.4f} ms, against {one_table_gather_ms:.4f} ms for one "
+          f"table gather", flush=True)
+    if gather_ms >= one_table_gather_ms:
+        raise AssertionError("the commit still gathers table points")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "index_gather_ms": gather_ms,
             "top": [[k[:60], c, ms] for ms, c, k in rows[:12]]}
 
 
@@ -668,6 +788,32 @@ def replay_case(ctx, spec):
         return (lambda: scans.scan_prefix_madd(xs, ys, fast=fast),
                 lambda: scans.scan_prefix_madd_plain(xs, ys, fast),
                 5 * FP_BYTES * m * C, 11 * FP_MUL_OPS * m * C)
+    if name == "scan_buckets":
+        (rows, _), (P,), m, nb = shape, spec[2], spec[3], spec[4]
+        C = P // m
+        from kzg_torch.ops import msm
+
+        table = msm.point_table((ctx.rand_field(FP, rows), ctx.rand_field(FP, rows)))
+        # a sort's permutation of the rows, random signs, sorted uniform digits
+        perm = torch.randperm(rows, device=ctx.device, generator=ctx.gen)[:P].to(torch.int32)
+        neg = torch.randint(0, 2, (P,), device=ctx.device, generator=ctx.gen).bool()
+        keys = torch.where(neg, perm | -(1 << 31), perm)
+        ds = torch.sort(torch.randint(0, nb, (P,), dtype=torch.int32, device=ctx.device,
+                                      generator=ctx.gen))[0]
+        return (lambda: scans.scan_buckets(table, keys, ds, m),
+                lambda: scans.scan_buckets_plain(table, keys, ds, m, nb),
+                2 * FP_BYTES * P + 8 * P + 3 * FP_BYTES * (C + nb), 11 * FP_MUL_OPS * (P - C))
+    if name == "dbl_windows":
+        steps, windows = spec[2], spec[3]
+        n = shape[1]
+        p = special_points(ctx, n)[0][:2]
+        def plain(*q):  # (12, windows, lanes): chunks join along the lanes
+            return tuple(c.view(FP.L, windows, -1) for c in cv.dbl_windows_plain(q, steps, windows))
+
+        return (lambda: cv.dbl_windows(p, steps, windows),
+                lambda: tuple(c.reshape(FP.L, windows * n) for c in chunked(torch, plain, p, n)),
+                2 * FP_BYTES * n + 3 * FP_BYTES * windows * n,
+                7 * steps * (windows - 1) * FP_MUL_OPS * n)
     if name == "hs_scan_points":
         reverse, exclusive = spec[2], spec[3]
         W = shape[-1]
@@ -758,27 +904,36 @@ def phase_replay(ctx, label, launches, calls, done):
     return totals
 
 
-def phase_exact_scan(ctx, calls):
-    """The exact scan runs only when the fast one raises its flag (a P == Q
-    step), so no path launches it: checked at the main path's scan shape and
-    timed in turns with the fast one on the same stream (fast, exact, exact,
-    fast), the measure of what the fast mode and its flag read buy."""
+def phase_stream_scan(ctx, calls):
+    """The streaming scan (K3's every-prefix entry, the function of K3a-d and
+    K6) runs on no path: checked in both modes against its plain version at
+    the shape the fused scan ran on the main path (m steps over C chunks),
+    and timed in turns on one stream (fast, exact, exact, fast). Returns its
+    kernels-line entry (the fast mode's numbers) and both modes' times."""
     from kzg_torch.ops import scans
     from kzg_torch.ops.field import FP
 
-    shape = next(spec[1] for spec in calls if spec[0] == "scan_madd")
-    m, _, C = shape
+    spec = next(spec for spec in calls if spec[0] == "scan_buckets")
+    P, m = spec[2][0], spec[3]
+    C = P // m
     xs = ctx.rand_field(FP, m * C).view(FP.L, m, C).permute(1, 0, 2)
     ys = ctx.rand_field(FP, m * C).view(FP.L, m, C).permute(1, 0, 2)
     fast = lambda: scans.scan_prefix_madd(xs, ys, fast=True)  # noqa: E731
     exact = lambda: scans.scan_prefix_madd(xs, ys, fast=False)  # noqa: E731
-    plain_ms, want = ctx.time_once(lambda: scans.scan_prefix_madd_plain(xs, ys, False))
-    check(ctx, f"scan_madd exact {shape}", exact(), want)
+    fast_plain_ms, want = ctx.time_once(lambda: scans.scan_prefix_madd_plain(xs, ys, True))
+    err = check(ctx, f"scan_madd fast {(m, FP.L, C)}", fast(), want)
+    exact_plain_ms, want = ctx.time_once(lambda: scans.scan_prefix_madd_plain(xs, ys, False))
+    err = max(err, check(ctx, f"scan_madd exact {(m, FP.L, C)}", exact(), want))
+    del want
     t = [ctx.time_cuda(f, reps=3) for f in (fast, exact, exact, fast)]
-    res = {"fast_ms": (t[0] + t[3]) / 2, "exact_ms": (t[1] + t[2]) / 2, "exact_plain_ms": plain_ms}
-    print(f"  scan_madd at {shape}: fast {t[0]:.3f} / {t[3]:.3f} ms, exact {t[1]:.3f} / "
-          f"{t[2]:.3f} ms, exact plain {plain_ms:.1f} ms", flush=True)
-    return res
+    print(f"  scan_madd at {(m, FP.L, C)}: fast {t[0]:.3f} / {t[3]:.3f} ms, exact {t[1]:.3f} / "
+          f"{t[2]:.3f} ms, plain fast {fast_plain_ms:.1f} / exact {exact_plain_ms:.1f} ms",
+          flush=True)
+    b, by = bound_ms(5 * FP_BYTES * m * C, 11 * FP_MUL_OPS * m * C)
+    entry = {"ms": (t[0] + t[3]) / 2, "plain_ms": fast_plain_ms, "err": err, "calls": 1,
+             "launches": 0, "bound_ms": b, "bound_by": by, "shape": str(((m, FP.L, C), "fast"))}
+    return entry, {"fast_ms": (t[0] + t[3]) / 2, "exact_ms": (t[1] + t[2]) / 2,
+                   "fast_plain_ms": fast_plain_ms, "exact_plain_ms": exact_plain_ms}
 
 
 def phase_off_path(ctx):
@@ -835,6 +990,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(verbose=True)
     print(f"  built {_build.library_path().name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    usage = _build.ptxas_usage()
+    for fn, u in sorted(usage.items()):
+        print(f"  ptxas {fn}: {u['registers']} registers, {u['spill_stores']} / "
+              f"{u['spill_loads']} bytes spill stores / loads, {u['smem']} bytes smem", flush=True)
+    missing = sorted({f for fns in DEVICE_FUNCTIONS.values() for f in fns} - set(usage))
+    if missing:
+        return fail(f"no -Xptxas -v report for {missing}")
 
     ctx = Ctx(torch, device)
     print("== kernels, exceptional cases", flush=True)
@@ -845,10 +1007,10 @@ def main() -> int:
     for label, (launches, calls) in paths.items():
         print(f"== replay: {label}", flush=True)
         per_path[label] = phase_replay(ctx, label, launches, calls, done)
-    print("== the exact scan beside the fast one", flush=True)
-    times["scan_modes"] = phase_exact_scan(ctx, paths[MAIN][1])
     print("== the kernels no path launches: K8, K7", flush=True)
     off_path, times["off_path_other_shapes"] = phase_off_path(ctx)
+    print("== the streaming scan, both modes, at the main path's scan shape", flush=True)
+    off_path["scan_madd"], times["scan_modes"] = phase_stream_scan(ctx, paths[MAIN][1])
     # last, so that no timing above runs after the profiler
     print("== profile: one warm 2^20 commit", flush=True)
     times["profile"] = phase_profile(ctx, commit)
@@ -868,6 +1030,9 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "path": label or f"none: timed at {t['shape']}",
             "calls": t["calls"],
+            "registers": max(usage[f]["registers"] for f in DEVICE_FUNCTIONS[name]),
+            "spill_bytes": max(usage[f]["spill_stores"] + usage[f]["spill_loads"]
+                               for f in DEVICE_FUNCTIONS[name]),
             "launches_by_path": {lb: paths[lb][0].get(name, 0) for lb in paths},
         })
     print(json.dumps({"slice_ms": times, "card": card,

@@ -47,9 +47,9 @@ def srs_from_jax(g1_x, g1_y, g1_inf=None, device=None) -> DeviceSRS:
 
 def tables_from_jax(tx, ty, device=None):
     """The JAX package's fixed-base tables (24, 16 n2) -> the port's
-    (tx, ty, y_pm), ready for ops.msm.msm_g1_fixed."""
+    point-major (16 n2, 24) table, ready for ops.msm.msm_g1_fixed."""
     device = resolve_device(device)
-    return msmops.signed_tables((from_jax_limbs(tx, device), from_jax_limbs(ty, device)))
+    return msmops.point_table((from_jax_limbs(tx, device), from_jax_limbs(ty, device)))
 
 
 def gen_tables_from_jax(tx, ty, device=None):

@@ -24,6 +24,7 @@ struct jac_t {
 };
 
 __device__ __forceinline__ fp_t fmul(const fp_t& a, const fp_t& b) { return mont_mul<12>(a, b); }
+__device__ __forceinline__ fp_t fsqr(const fp_t& a) { return mont_sqr<12>(a); }
 __device__ __forceinline__ fp_t fadd(const fp_t& a, const fp_t& b) { return add<12>(a, b); }
 __device__ __forceinline__ fp_t fsub(const fp_t& a, const fp_t& b) { return sub<12>(a, b); }
 __device__ __forceinline__ fp_t fdbl(const fp_t& a) { return dbl<12>(a); }
@@ -56,14 +57,14 @@ __device__ __forceinline__ jac_t jsel(bool c, const jac_t& a, const jac_t& b) {
 
 // dbl-2009-l (a = 0): 2M + 5S. Maps infinity to infinity.
 __device__ __forceinline__ jac_t g1_double(const jac_t& p) {
-  const fp_t A = fmul(p.x, p.x);
-  const fp_t B = fmul(p.y, p.y);
-  const fp_t C = fmul(B, B);
+  const fp_t A = fsqr(p.x);
+  const fp_t B = fsqr(p.y);
+  const fp_t C = fsqr(B);
   const fp_t xb = fadd(p.x, B);
-  const fp_t t = fmul(xb, xb);
+  const fp_t t = fsqr(xb);
   const fp_t D = fdbl(fsub(fsub(t, A), C));
   const fp_t E = fadd(fdbl(A), A);
-  const fp_t F = fmul(E, E);
+  const fp_t F = fsqr(E);
   jac_t r;
   r.x = fsub(F, fdbl(D));
   const fp_t eightC = fdbl(fdbl(fdbl(C)));
@@ -74,21 +75,21 @@ __device__ __forceinline__ jac_t g1_double(const jac_t& p) {
 
 // add-2007-bl with the exceptional lanes: 11M + 5S.
 __device__ __forceinline__ jac_t g1_add(const jac_t& p, const jac_t& q) {
-  const fp_t Z1Z1 = fmul(p.z, p.z);
-  const fp_t Z2Z2 = fmul(q.z, q.z);
+  const fp_t Z1Z1 = fsqr(p.z);
+  const fp_t Z2Z2 = fsqr(q.z);
   const fp_t U1 = fmul(p.x, Z2Z2);
   const fp_t U2 = fmul(q.x, Z1Z1);
   const fp_t S1 = fmul(p.y, fmul(q.z, Z2Z2));
   const fp_t S2 = fmul(q.y, fmul(p.z, Z1Z1));
   const fp_t H = fsub(U2, U1);
   const fp_t H2 = fdbl(H);
-  const fp_t I = fmul(H2, H2);
+  const fp_t I = fsqr(H2);
   const fp_t J = fmul(H, I);
   const fp_t dS = fsub(S2, S1);
   const fp_t r = fdbl(dS);
   const fp_t V = fmul(U1, I);
   jac_t out;
-  out.x = fsub(fsub(fmul(r, r), J), fdbl(V));
+  out.x = fsub(fsub(fsqr(r), J), fdbl(V));
   out.y = fsub(fmul(r, fsub(V, out.x)), fdbl(fmul(S1, J)));
   out.z = fmul(fmul(p.z, q.z), H2);
 
@@ -105,18 +106,18 @@ __device__ __forceinline__ jac_t g1_add(const jac_t& p, const jac_t& q) {
 // two equality tests the exceptional lanes need.
 __device__ __forceinline__ jac_t g1_madd_core(const jac_t& p, const fp_t& x2, const fp_t& y2,
                                               bool& same_x, bool& same_y) {
-  const fp_t Z1Z1 = fmul(p.z, p.z);
+  const fp_t Z1Z1 = fsqr(p.z);
   const fp_t U2 = fmul(x2, Z1Z1);
   const fp_t S2 = fmul(y2, fmul(p.z, Z1Z1));
   const fp_t H = fsub(U2, p.x);
   const fp_t H2 = fdbl(H);
-  const fp_t I = fmul(H2, H2);
+  const fp_t I = fsqr(H2);
   const fp_t J = fmul(H, I);
   const fp_t dS = fsub(S2, p.y);
   const fp_t r = fdbl(dS);
   const fp_t V = fmul(p.x, I);
   jac_t out;
-  out.x = fsub(fsub(fmul(r, r), J), fdbl(V));
+  out.x = fsub(fsub(fsqr(r), J), fdbl(V));
   out.y = fsub(fmul(r, fsub(V, out.x)), fdbl(fmul(p.y, J)));
   out.z = fmul(H2, p.z);
   same_x = fzero(H);

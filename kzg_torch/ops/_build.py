@@ -7,9 +7,12 @@ with a plain C interface, and loaded with ctypes. The library lands in
 sources and flags, so an unchanged tree reuses it and a changed one rebuilds.
 Nothing is built when a module is imported: the first kernel launch builds.
 
-Each C entry point returns ``cudaGetLastError()`` after its launch; ``launch``
-raises on a non-zero code. ``LAUNCHES`` counts launches per kernel name, one
-per launch and nowhere else, so a run can show which kernels it went through.
+Each source is compiled with ``-Xptxas -v``; the log is kept beside the
+library and ``ptxas_usage`` reads each kernel's registers, spills and shared
+memory from it. Each C entry point returns ``cudaGetLastError()`` after its
+launch; ``launch`` raises on a non-zero code. ``LAUNCHES`` counts launches
+per kernel name, one per launch and nowhere else, so a run can show which
+kernels it went through.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -40,11 +44,12 @@ SIGNATURES = {
     "kzg_g1_add": [_P] * 9 + [_I, _P],
     "kzg_g1_madd": [_P] * 8 + [_P, _I, _P],
     "kzg_scan_madd": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "kzg_scan_buckets": [_P] * 9 + [_I, _I, _I, _P],
     "kzg_hs_scan_block": [_P] * 9 + [_I, _I, _I, _P],
     "kzg_hs_scan_offset": [_P] * 6 + [_I, _I, _I, _P],
     "kzg_gen_fold": [_P] * 6 + [_I, _P],
     "kzg_fold_entries": [_P] * 5 + [_I, _I, _P],
-    "kzg_dbl_chain": [_P] * 6 + [_I, _I, _P],
+    "kzg_dbl_chain": [_P] * 6 + [_I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -89,15 +94,17 @@ def build(verbose: bool = False) -> Path:
         procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))
         objs.append(obj)
-    failed = []
+    failed, logs = [], []
     for src, proc in procs:
         log, _ = proc.communicate()
+        logs.append(f"[nvcc {src.name}]\n{log}")
         if verbose or proc.returncode:
-            print(f"[nvcc {src.name}]\n{log}", flush=True)
+            print(logs[-1], flush=True)
         if proc.returncode:
             failed.append(src.name)
     if failed:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}")
+    out.with_suffix(".ptxas.txt").write_text("\n".join(logs))
     tmp = out.with_suffix(f".{tag}.tmp")
     link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -107,6 +114,47 @@ def build(verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, out)
     return out
+
+
+def _demangle(name: str) -> str:
+    """``_ZN3kzg16scan_madd_kernelILb1EEEv...`` -> ``scan_madd_kernel<true>``:
+    the kernel's name and its one bool or int template argument, if any."""
+    m = re.match(r"_ZN3kzg(\d+)", name)
+    if not m:
+        return name
+    start = m.end()
+    ident = name[start:start + int(m.group(1))]
+    arg = re.match(r"IL([bi])(\d+)E", name[start + len(ident):])
+    if arg:
+        val = arg.group(2)
+        ident += "<" + ({"1": "true", "0": "false"}[val] if arg.group(1) == "b" else val) + ">"
+    return ident
+
+
+def ptxas_usage() -> dict:
+    """Per kernel, from the build's ``-Xptxas -v`` log: registers a thread,
+    spill stores and loads (bytes), static shared memory (bytes)."""
+    log = library_path().with_suffix(".ptxas.txt")
+    usage, current = {}, None
+    for line in log.read_text().splitlines() if log.exists() else []:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = _demangle(m.group(1))
+            usage[current] = {"registers": None, "spill_stores": 0, "spill_loads": 0,
+                              "smem": 0}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            usage[current]["spill_stores"] = int(m.group(1))
+            usage[current]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[current]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            usage[current]["smem"] = int(sm.group(1)) if sm else 0
+    return usage
 
 
 def library() -> ctypes.CDLL:

@@ -260,7 +260,7 @@ def g1_madd(p, q_affine, fast: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# K7: the doubling chain
+# K7: the doubling chain, and its windowed form for the table build
 # ---------------------------------------------------------------------------
 
 
@@ -283,8 +283,43 @@ def dbl_chain(p, steps: int):
     out = tuple(torch.empty_like(c) for c in flat)
     if n:
         _build.launch("dbl_chain", "kzg_dbl_chain", *(c.data_ptr() for c in flat + out),
-                      steps, n)
+                      steps, 0, 1, n)
     return tuple(o.reshape(shape) for o in out)
+
+
+def dbl_windows_plain(p_affine, steps: int, windows: int):
+    """Plain windowed K7: the loop of g1_double_plain the table build ran.
+    Returns (12, windows * n) coordinates, window k = 2^(steps k) p in
+    columns [k n, k n + n)."""
+    x, y = p_affine
+    cur = (x, y, FP.one_like(x))
+    out = [cur]
+    for _ in range(1, windows):
+        cur = dbl_chain_plain(cur, steps)
+        out.append(cur)
+    return tuple(torch.cat([w[k] for w in out], dim=1) for k in range(3))
+
+
+def dbl_windows(p_affine, steps: int, windows: int):
+    """Windowed K7 on affine (x, y) (12, n) words (z the Montgomery one):
+    2^(steps k) p for k < windows as one (12, windows * n) Jacobian triple,
+    window k in columns [k n, k n + n). CPU tensors take the plain version;
+    CUDA tensors launch ``kzg_dbl_chain`` once, writing each window from
+    registers."""
+    if steps < 0 or windows < 1:
+        raise ValueError("need steps >= 0 and windows >= 1")
+    x, y = p_affine
+    if x.shape != y.shape or x.dim() != 2 or x.shape[0] != FP.L:
+        raise ValueError("dbl_windows takes (12, n) affine coordinates")
+    if x.device.type == "cpu":
+        return dbl_windows_plain(p_affine, steps, windows)
+    _build.check_cuda(x, y)
+    n = x.shape[1]
+    out = tuple(torch.empty(FP.L, windows * n, dtype=x.dtype, device=x.device) for _ in range(3))
+    if n:
+        _build.launch("dbl_windows", "kzg_dbl_chain", x.data_ptr(), y.data_ptr(), None,
+                      *(c.data_ptr() for c in out), 0, steps, windows, n)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -8,18 +8,23 @@ Counterpart of ``kzg_tpu/ops/msm.py``. Two paths give the same group element:
 * ``msm_g1_fixed``: the fixed-base MSM against precomputed window tables
   (``precompute_g1_tables``), the commit path at n >= FIXED_BASE_THRESHOLD,
   in the stages of the JAX package's signed-digit pipeline:
-    1. tables: table[w * n2 + i] = 2^(16 w) P_i, affine
+    1. tables: table[w * n2 + i] = 2^(16 w) P_i, affine, one windowed
+       doubling chain (K7) and one inversion; kept point-major, a row of
+       24 words (x, then y) per point (``point_table``)
     2. signed 16-bit digits e_w, |e_w| <= 2^15 (a negative digit takes the
        negated table point)
-    3. a stable sort of the 16 n2 (point, |digit|) pairs by digit
-    4. the chunked bucket scan (K3), every prefix kept
+    3. a sort of the 16 n2 (point, |digit|) pairs by digit, ties in pair
+       order, into one int32 key per pair (row | sign bit)
+    4. the chunked bucket scan (K3, fused): chunk totals, and the chunk
+       prefix at each digit's last position
     5. chunk offsets: the exclusive prefix of the chunk totals (K4)
     6. bucket sums S_b = V_b - V_{b-1} from global prefixes at each digit's
        last position (K2 adds)
     7. sum_b b S_b by a 3-axis digit grid (b = 2^10 u + 2^5 v + w), suffix-
        weighted sums (K4) and a Horner combine (K2 doubles and adds)
-  Sorting, gathers, searchsorted and the digit rewrite are data movement and
-  stay plain PyTorch, as they were XLA outside Pallas in the JAX package.
+  Sorting, searchsorted, the digit rewrite and the gathers of the bucket
+  extraction are data movement and stay plain PyTorch, as they were XLA
+  outside Pallas in the JAX package; the scan reads its table points itself.
 """
 
 from __future__ import annotations
@@ -27,16 +32,20 @@ from __future__ import annotations
 import torch
 
 from . import curve as cv
+from . import scans
 from .field import FP
 from .limbs import MASK16
-from .scans import hs_scan_points, scan_runs
 
 FB_WINDOW_BITS = 16
 FB_WINDOWS = 16  # 256 / FB_WINDOW_BITS
 # below this the per-MSM bucket-stage overhead (~2^15 lanes of adds and the
 # extraction, independent of n) outweighs the fixed-base scan's savings
 FIXED_BASE_THRESHOLD = 16384
-N_SIGNED_BUCKETS = (1 << 15) + 1
+# the scan's chunk count the chunk length m aims at, one thread a chunk:
+# 131,072 threads are 2.6 waves of the fused scan's 12 warps on each of an
+# H100's 132 SMs. Fewer, longer chunks leave SMs idle in the last wave; more,
+# shorter ones cost more chunk offsets (K4) than they save.
+SCAN_CHUNKS = 1 << 17
 _GRID = 32  # b = 2^10 u + 2^5 v + w with u, v, w < 32
 
 
@@ -77,8 +86,8 @@ def precompute_g1_tables(pts_affine, inf_mask=None):
     """(x, y) (12, n) affine Montgomery words -> (tx, ty) (12, 16 n2) with
     table[w * n2 + i] = 2^(16 w) P_i, n2 the power-of-two width >= 64. Pad
     lanes and lanes flagged in inf_mask hold the generator (their digits are
-    forced to 0, so they never contribute). 240 batched doublings (K2) and
-    one batched inversion (K1) per SRS."""
+    forced to 0, so they never contribute). One windowed doubling chain (K7,
+    240 doublings a lane) and one batched inversion (K1) per SRS."""
     x, y = pts_affine
     n = x.shape[1]
     n2 = _pow2_width(n)
@@ -88,34 +97,20 @@ def precompute_g1_tables(pts_affine, inf_mask=None):
         real = real & ~torch.nn.functional.pad(inf_mask.to(x.device), (0, n2 - n))
     x = FP.select(real, torch.nn.functional.pad(x, (0, n2 - n)), gx)
     y = FP.select(real, torch.nn.functional.pad(y, (0, n2 - n)), gy)
-    cur = (x, y, FP.one_like(x))
-    windows = [cur]
-    for _ in range(1, FB_WINDOWS):
-        for _ in range(FB_WINDOW_BITS):
-            cur = cv.g1_double(cur)
-        windows.append(cur)
-    jac = tuple(torch.stack([w[k] for w in windows], dim=1).reshape(FP.L, FB_WINDOWS * n2)
-                for k in range(3))
-    del windows, cur
+    jac = cv.dbl_windows((x, y), FB_WINDOW_BITS, FB_WINDOWS)
     (tx, ty), _ = cv.to_affine(jac)
     return tx, ty
 
 
-_NEG_CHUNK = 1 << 22  # lanes per plain negation: bounds its int64 temporaries
-
-
-def signed_tables(tables):
-    """(tx, ty) -> (tx, ty, y_pm): y_pm = [ty | -ty] (12, 2 P), the table's
-    y next to its negation, so a negative digit's point is one gather at
-    index + P. ty is returned as a view into y_pm."""
-    tx, ty = tables[0], tables[1]
-    P = ty.shape[1]
-    y_pm = torch.empty(FP.L, 2 * P, dtype=ty.dtype, device=ty.device)
-    y_pm[:, :P] = ty
-    for lo in range(0, P, _NEG_CHUNK):
-        hi = min(lo + _NEG_CHUNK, P)
-        y_pm[:, P + lo : P + hi] = FP.neg(ty[:, lo:hi])
-    return tx, y_pm[:, :P], y_pm
+def point_table(tables):
+    """(tx, ty) (12, P) -> the scan's point-major (P, 24) table: row p holds
+    point p's x words, then its y words (96 bytes, read as six 16-byte
+    pieces)."""
+    tx, ty = tables
+    out = torch.empty(tx.shape[1], 2 * FP.L, dtype=tx.dtype, device=tx.device)
+    out[:, : FP.L] = tx.t()
+    out[:, FP.L :] = ty.t()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +137,9 @@ def signed_digits(scalars: torch.Tensor):
 
 
 def fb_chunk_size(P: int, chunk: int | None = None) -> int:
-    """The scan chunk length m for a P-pair fixed-base pipeline."""
-    m = chunk if chunk is not None else min(512, max(64, P // 2048))
+    """The scan chunk length m for a P-pair fixed-base pipeline: about
+    SCAN_CHUNKS chunks, m in [64, 512]."""
+    m = chunk if chunk is not None else min(512, max(64, P // SCAN_CHUNKS))
     return min(m, P)
 
 
@@ -152,36 +148,35 @@ def fb_chunk_size(P: int, chunk: int | None = None) -> int:
 # ---------------------------------------------------------------------------
 
 
-def sort_pairs(tx, y_pm, absd, negd, m: int):
-    """Stage 3: pairs stably sorted by |digit|; a pair with a negative digit
-    takes the negated table y. Returns the scan streams xs, ys as (m, 12, C)
-    views (stream[j, :, c] = sorted pair c * m + j) and the sorted digits."""
+def sort_pairs(absd, negd):
+    """Stage 3: the pairs sorted by |digit|, ties in pair order, as one sort
+    of the composite key |digit| 2^33 + pair 2 + sign. Returns (keys, ds),
+    both (P,) int32: keys[p] = table row | bit 31 for a negative digit, ds[p]
+    the sorted |digit|."""
     P = absd.numel()
-    C = P // m
-    ds, order = torch.sort(absd.reshape(P), stable=True)
-    neg_s = negd.reshape(P)[order]
-    idx = order.view(C, m).t().reshape(P)  # scan position (j, c) <- sorted pair c*m + j
-    yidx = idx + neg_s.view(C, m).t().reshape(P) * P
-    xs = tx[:, idx].view(FP.L, m, C).permute(1, 0, 2)
-    ys = y_pm[:, yidx].view(FP.L, m, C).permute(1, 0, 2)
-    return xs, ys, ds
+    pair = torch.arange(P, dtype=torch.int64, device=absd.device)
+    comp, _ = torch.sort((absd.reshape(P) << 33) | (pair << 1) | negd.reshape(P).to(torch.int64))
+    row = ((comp >> 1) & 0x7FFFFFFF).to(torch.int32)
+    keys = torch.where((comp & 1) == 1, row | scans.KEY_SIGN, row)
+    return keys, (comp >> 33).to(torch.int32)
 
 
-def bucket_sums(runs, ds, m: int):
+def bucket_sums(totals, U, ds, m: int):
     """Stages 5-6: S_b for b in [0, 2^15] from global prefix differences:
-    V_b = (chunk prefix at the last sorted position with digit <= b) +
-    (offset of its chunk); S_b = V_b - V_{b-1}. Empty buckets give the
-    identity. Returns a (12, 2^15 + 1) Jacobian triple."""
-    totals = tuple(r[-1] for r in runs)  # (12, C)
-    off = hs_scan_points(*totals, exclusive=True)
-    b = torch.arange(N_SIGNED_BUCKETS, dtype=ds.dtype, device=ds.device)
+    V_b = (chunk prefix at the last sorted position with digit <= b, slot
+    ds of that position in U) + (offset of its chunk); S_b = V_b - V_{b-1}.
+    Empty buckets give the identity. Returns a (12, 2^15 + 1) Jacobian
+    triple."""
+    off = scans.hs_scan_points(*totals, exclusive=True)
+    b = torch.arange(scans.N_BUCKET_SLOTS, dtype=ds.dtype, device=ds.device)
     lpos = torch.searchsorted(ds, b, right=True) - 1
     valid = lpos >= 0
     lc = lpos.clamp(min=0)
-    j, c = lc % m, lc // m
-    U = tuple(r[j, :, c].t().contiguous() for r in runs)
+    slot = ds[lc].long()
+    c = lc // m
+    Ub = tuple(u[:, slot].contiguous() for u in U)
     O = tuple(o[:, c].contiguous() for o in off)
-    V = cv.select(valid, cv.g1_add(U, O), cv.inf_like(U))
+    V = cv.select(valid, cv.g1_add(Ub, O), cv.inf_like(Ub))
     Vprev = tuple(torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], dim=1) for v in V)
     return cv.g1_add(V, cv.neg(Vprev))
 
@@ -194,7 +189,7 @@ def bucket_sums(runs, ds, m: int):
 def _suffix_weighted(rows):
     """sum_k k * P_k along the last axis: T_j = sum_{k >= j} P_k (K4), then
     sum_j T_j = sum_k (k + 1) P_k, so the answer is sum_j T_j - T_0."""
-    T = hs_scan_points(*rows, reverse=True)
+    T = scans.hs_scan_points(*rows, reverse=True)
     total = tree_reduce(T)
     t0 = tuple(c[..., 0].contiguous() for c in T)
     return cv.g1_add(total, cv.neg(t0))
@@ -221,16 +216,13 @@ def weighted_bucket_sum(S):
     return tuple(c[:, 0] for c in acc)
 
 
-def msm_g1_fixed(tables, scalars: torch.Tensor, inf_mask=None, chunk: int | None = None):
+def msm_g1_fixed(table, scalars: torch.Tensor, inf_mask=None, chunk: int | None = None):
     """G1 MSM against fixed-base tables: sum_i k_i P_i.
 
-    tables: (tx, ty) from precompute_g1_tables, or (tx, ty, y_pm) from
-    signed_tables; scalars: (8, n) standard-form Fr words, n <= the table
-    width. Returns the Jacobian sum, a triple of (12,) words."""
-    if len(tables) < 3:
-        tables = signed_tables(tables)
-    tx, _, y_pm = tables
-    nt = tx.shape[1] // FB_WINDOWS
+    table: the point-major (16 n2, 24) table (point_table of
+    precompute_g1_tables); scalars: (8, n) standard-form Fr words, n <= the
+    table width. Returns the Jacobian sum, a triple of (12,) words."""
+    nt = table.shape[0] // FB_WINDOWS
     n = scalars.shape[-1]
     if n > nt:
         raise ValueError(f"{n} scalars for a table of {nt} points")
@@ -244,7 +236,6 @@ def msm_g1_fixed(tables, scalars: torch.Tensor, inf_mask=None, chunk: int | None
     m = fb_chunk_size(P, chunk)
     if P % m:
         raise ValueError(f"chunk {m} must divide the {P} pairs")
-    xs, ys, ds = sort_pairs(tx, y_pm, absd, negd, m)
-    runs = scan_runs(xs, ys)
-    del xs, ys
-    return weighted_bucket_sum(bucket_sums(runs, ds, m))
+    keys, ds = sort_pairs(absd, negd)
+    totals, U = scans.scan_buckets(table, keys, ds, m)
+    return weighted_bucket_sum(bucket_sums(totals, U, ds, m))

@@ -2,8 +2,13 @@
 
 Counterpart of ``kzg_tpu/ops/pallas_msm.py`` and ``pallas_msm25.py``:
 
-* K3 ``scan_prefix_madd`` (``csrc/scan_madd.cu``): per chunk, m sequential
-  mixed adds over the digit-sorted affine stream, every Jacobian prefix kept.
+* K3 ``scan_buckets`` (``csrc/scan_madd.cu``, fused): the commit's bucket
+  scan. Per chunk of m digit-sorted pairs, the running sum of their table
+  points, read from the point-major table by key; only the chunk totals and
+  the prefix at each digit's last position are kept.
+* K3 ``scan_prefix_madd`` (same source, streaming): per chunk, m sequential
+  mixed adds over a pre-gathered affine stream, every Jacobian prefix kept
+  (the function of K3a-d and K6; batch opening will call it).
 * K4 ``hs_scan_points`` (``csrc/hs_scan.cu``): prefix or suffix sums of
   Jacobian points along the last axis, inclusive or exclusive, any width.
 
@@ -71,14 +76,69 @@ def scan_prefix_madd(xs: torch.Tensor, ys: torch.Tensor, fast: bool = True):
     return runs, flag[0] != 0
 
 
-def scan_runs(xs: torch.Tensor, ys: torch.Tensor):
-    """The scan as the MSM runs it: the fast mode, and the exact mode again
-    only if a lane needed a doubling (kzg_tpu msm.py:584-592; one host read
-    of the flag)."""
-    runs, flag = scan_prefix_madd(xs, ys, fast=True)
-    if bool(flag):
-        runs, _ = scan_prefix_madd(xs, ys, fast=False)
-    return runs
+N_BUCKET_SLOTS = (1 << 15) + 1  # one slot per signed-digit bucket b in [0, 2^15]
+KEY_SIGN = -(1 << 31)  # bit 31 of an int32 key: the pair's digit is negative
+
+
+def _last_of_digit(ds: torch.Tensor) -> torch.Tensor:
+    """(P,) bool: position p is the last of its digit's run."""
+    last = torch.ones_like(ds, dtype=torch.bool)
+    last[:-1] = ds[1:] != ds[:-1]
+    return last
+
+
+def scan_buckets_plain(table, keys, ds, m: int, nb: int = N_BUCKET_SLOTS):
+    """Plain version of the fused K3 (any device), in the kernel's order.
+    table: (R, 24) point-major affine rows (x words, then y words); keys:
+    (P,) int32 row | sign bit; ds: (P,) int32 sorted |digit| in [0, nb).
+    Returns (totals, U): totals 3 x (12, C), the sum of each chunk of m
+    pairs; U 3 x (12, nb), slot ds[p] holding chunk p // m's prefix through
+    p at each digit's last position p, zeros elsewhere."""
+    P = keys.numel()
+    C = P // m
+    rows = table[(keys & 0x7FFFFFFF).long()]
+    x = rows[:, : FP.L].t()
+    y = FP.select(keys < 0, FP.neg(rows[:, FP.L :].t().contiguous()), rows[:, FP.L :].t())
+    last = _last_of_digit(ds)
+    pos = torch.arange(P, device=keys.device).view(C, m)
+    U = tuple(torch.zeros(FP.L, nb, dtype=torch.int32, device=keys.device) for _ in range(3))
+    run = tuple(torch.zeros(2 * FP.L, C, dtype=torch.int64, device=keys.device) for _ in range(3))
+    for j in range(m):
+        p = pos[:, j]
+        run = cv.madd16(run, cv.to16((x[:, p], y[:, p])))
+        hit = last[p]
+        if bool(hit.any()):
+            slots = ds[p[hit]].long()
+            for u, w in zip(U, cv.from16(tuple(c[:, hit] for c in run))):
+                u[:, slots] = w
+    return cv.from16(run), U
+
+
+def scan_buckets(table, keys, ds, m: int, nb: int = N_BUCKET_SLOTS):
+    """The fused K3 wrapper; arguments and result as scan_buckets_plain.
+    CPU tensors take the plain version; CUDA tensors launch
+    ``kzg_scan_buckets``, which reads each pair's row itself (rows are 96
+    bytes, 16-byte aligned) and writes only the totals and the U slots.
+    Keys carry the row in 31 bits, so the table has at most 2^30 rows
+    (n2 <= 2^26)."""
+    P = keys.numel()
+    if table.dim() != 2 or table.shape[1] != 2 * FP.L:
+        raise ValueError("the scan's table is (rows, 24) point-major words")
+    if keys.shape != (P,) or ds.shape != (P,) or m <= 0 or P % m:
+        raise ValueError(f"keys and digits must be (P,) with the chunk {m} dividing P = {P}")
+    if table.shape[0] > 1 << 30:
+        raise ValueError("table rows exceed 2^30 (n2 > 2^26): the key's 31 bits cannot index them")
+    if table.device.type == "cpu":
+        return scan_buckets_plain(table, keys, ds, m, nb)
+    _build.check_cuda(table, keys, ds)
+    if table.data_ptr() % 16:
+        raise ValueError("the table must be 16-byte aligned")
+    C = P // m
+    totals = tuple(torch.empty(FP.L, C, dtype=torch.int32, device=keys.device) for _ in range(3))
+    U = tuple(torch.zeros(FP.L, nb, dtype=torch.int32, device=keys.device) for _ in range(3))
+    _build.launch("scan_buckets", "kzg_scan_buckets", table.data_ptr(), keys.data_ptr(),
+                  ds.data_ptr(), *(c.data_ptr() for c in totals + U), m, C, nb)
+    return totals, U
 
 
 # ---------------------------------------------------------------------------

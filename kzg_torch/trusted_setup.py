@@ -64,12 +64,13 @@ class DeviceSRS:
         return self.g1_x.device
 
     def fixed_tables(self):
-        """Fixed-base window tables with the negated y beside y
-        (ops.msm.precompute_g1_tables, signed_tables), built once and cached:
-        the SRS is fixed across commits."""
+        """The fixed-base window tables as the scan reads them, point-major
+        (16 n2, 24) (ops.msm.precompute_g1_tables, point_table), built once
+        and cached: the SRS is fixed across commits. The limb-major tables
+        the build makes are freed once the point-major copy exists."""
         if self._fb_tables is None:
             tables = msmops.precompute_g1_tables((self.g1_x, self.g1_y), self.g1_inf)
-            self._fb_tables = msmops.signed_tables(tables)
+            self._fb_tables = msmops.point_table(tables)
         return self._fb_tables
 
     @classmethod

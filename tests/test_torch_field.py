@@ -159,3 +159,137 @@ def test_mul_bit_identical_to_kzg_tpu(name):
     got = F.mul(a, b)
     assert np.array_equal(convert.to_jax_limbs(got), want)
     assert torch.equal(got, convert.from_jax_limbs(want))
+
+
+def _ptx_chains(L):
+    """The asm blocks of field.cuh's Ptx<L>, by function: a list of
+    (instructions, operand expressions) per block."""
+    src = (CSRC / "field.cuh").read_text()
+    body = src.split(f"template <> struct Ptx<{L}> {{")[1].split("\n};")[0]
+    funcs = {}
+    for name, fbody in re.findall(r"__forceinline__ \w+ (\w+)\((.*?)\n  \}", body, re.S):
+        blocks = []
+        for asm in re.findall(r"asm volatile\((.*?)\);", fbody, re.S):
+            text, outs, ins = asm.split(":")
+            instrs = [s.strip() for s in "".join(re.findall(r'"(.*?)"', text)).replace(
+                "\\n", "").replace("\\t", "").split(";") if s.strip()]
+            ops = re.findall(r'"[+=]?r"\((.*?)\)', outs + ":" + ins)
+            blocks.append((instrs, ops))
+        funcs[name] = blocks
+    return funcs
+
+
+def _run_ptx(blocks, env):
+    """Interpret the carry-chain instructions on python ints (u32 words)."""
+    M = (1 << 32) - 1
+    for instrs, ops in blocks:
+        cc = 0
+
+        def val(tok):
+            tok = tok.strip()
+            return env[ops[int(tok[1:])]] if tok.startswith("%") else int(tok, 0)
+
+        for ins in instrs:
+            opcode, args = ins.split(None, 1)
+            args = args.split(",")
+            dst = ops[int(args[0].strip()[1:])]
+            parts = opcode.split(".")
+            base, carry_in = parts[0].rstrip("c"), parts[0] in ("madc", "addc", "subc")
+            assert base in ("mad", "mul", "add", "sub"), opcode
+            cin = cc if carry_in else 0
+            if base in ("mad", "mul"):
+                prod = val(args[1]) * val(args[2])
+                prod = prod & M if parts[1] == "lo" else prod >> 32
+                full = prod + (val(args[3]) + cin if base == "mad" else 0)
+            elif base == "add":
+                full = val(args[1]) + val(args[2]) + cin
+            else:  # sub: the carry flag holds the borrow
+                full = val(args[1]) - val(args[2]) - cin
+            if ".cc" in opcode:
+                cc = (full >> 32) & 1 if base != "sub" else int(full < 0)
+            env[dst] = full & M
+    return env
+
+
+@pytest.mark.parametrize("name", ["Fp", "Fr"])
+def test_ptx_carry_chains_compute_the_montgomery_product(name):
+    """field.cuh's multiply, add, subtract and (Fp) square, with every asm
+    carry chain of Ptx<L> interpreted instruction by instruction, equal
+    exact python ints on random values and on 0, 1, N - 1 and R mod N: the
+    chains' operand numbers, carries and immediates are what the CIOS loop
+    and the square's reduction need."""
+    F = FIELDS[name]
+    L, N = F.L, F.modulus
+    chains = _ptx_chains(L)
+    assert set(chains) == {"mul_row", "red_row", "sub_n", "add", "sub"} | (
+        {"sqr_wide"} if L == 12 else set())
+    n0 = (-pow(N, -1, 1 << 32)) % (1 << 32)
+    rinv = pow(F.R_int, -1, N)
+
+    def words(v):
+        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(L)]
+
+    def value(w):
+        return sum(x << (32 * i) for i, x in enumerate(w))
+
+    def env_of(**arrays):
+        env = {}
+        for key, arr in arrays.items():
+            if isinstance(arr, list):
+                env.update({f"{key}[{j}]": x for j, x in enumerate(arr)})
+            else:
+                env[key] = arr
+        return env
+
+    def cond_sub(t, hi):
+        e = _run_ptx(chains["sub_n"], env_of(d=list(t), hi=hi, r=0))
+        take = e["r"] < (1 << 31)
+        return [e[f"d[{j}]"] for j in range(L)] if take else list(t)
+
+    def mont_mul(a, b):
+        t = [0] * L + [0xDEAD]  # t[L] is written before it is read
+        for i in range(L):
+            e = _run_ptx(chains["mul_row"], env_of(t=t, a=a, b=b[i]))
+            t = [e[f"t[{j}]"] for j in range(L + 1)]
+            e = _run_ptx(chains["red_row"], env_of(t=t, m=t[0] * n0 % (1 << 32)))
+            t = [e[f"t[{j}]"] for j in range(L + 1)]
+            assert t[0] == 0
+            t = t[1:] + [0xDEAD]
+        return cond_sub(t[:L], 0)
+
+    def add(a, b):
+        e = _run_ptx(chains["add"], env_of(s=list(a), b=b, c=0))
+        return cond_sub([e[f"s[{j}]"] for j in range(L)], e["c"])
+
+    def sub(a, b):
+        e = _run_ptx(chains["sub"], env_of(d=list(a), b=b, r=0))
+        d = [e[f"d[{j}]"] for j in range(L)]
+        nb = [w & e["r"] for w in words(N)]
+        e = _run_ptx(chains["add"], env_of(s=d, b=nb, c=0))
+        return [e[f"s[{j}]"] for j in range(L)]
+
+    def mont_sqr(a):
+        """The Fp square: sqr_wide (its first row's low products are C
+        code), reduction rows on the low half, the high half added."""
+        t = [0xDEAD] * (2 * L)  # every word is written before it is read
+        t[1:L] = [a[0] * a[k] % (1 << 32) for k in range(1, L)]
+        e = _run_ptx(chains["sqr_wide"], env_of(t=t, a=a, c=0xDEAD, junk=0xDEAD))
+        t = [e[f"t[{j}]"] for j in range(2 * L)]
+        assert value(t) == value(a) ** 2
+        u = t[:L] + [0]
+        for _ in range(L):
+            e = _run_ptx(chains["red_row"], env_of(t=u, m=u[0] * n0 % (1 << 32)))
+            u = [e[f"t[{j}]"] for j in range(L + 1)]
+            assert u[0] == 0
+            u = u[1:] + [0]
+        e = _run_ptx(chains["add"], env_of(s=u[:L], b=t[L:], c=0))
+        return cond_sub([e[f"s[{j}]"] for j in range(L)], e["c"])
+
+    vals = _values(F, 24, 7) + [F.R_int % N]
+    for x, y in zip(vals, vals[::-1]):
+        a, b = words(x), words(y)
+        assert value(mont_mul(a, b)) == x * y * rinv % N
+        assert value(add(a, b)) == (x + y) % N
+        assert value(sub(a, b)) == (x - y) % N
+        if "sqr_wide" in chains:
+            assert value(mont_sqr(a)) == x * x * rinv % N

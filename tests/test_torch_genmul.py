@@ -190,6 +190,37 @@ def test_dbl_chain_bit_identical_to_kzg_tpu(steps):
     assert all(torch.equal(a, b) for a, b in zip(cv.dbl_chain(p, 0), p))
 
 
+def test_dbl_windows_equals_the_old_loop_and_kzg_tpu():
+    """The windowed K7's plain version (the table build's doubling chain)
+    against the loop it replaced (g1_double, then a stack of the windows)
+    and against the JAX package's G1.double run eagerly, on affine inputs
+    with z the Montgomery one; every window equals 2^(steps k) P."""
+    from kzg_tpu.ops.curve import G1
+
+    steps, windows = 2, 3
+    rng = np.random.default_rng(5)
+    pts = [hm.g1_mul(hm.G1_GEN, int(k) + 1) for k in rng.integers(0, 1 << 62, 5)]
+    x, y = (FP.tensor([pt[i] for pt in pts], "cpu") for i in range(2))
+    got = cv.dbl_windows((x, y), steps, windows)
+    cur = (x, y, FP.one_like(x))
+    old = [cur]
+    for _ in range(1, windows):
+        for _ in range(steps):
+            cur = cv.g1_double(cur)
+        old.append(cur)
+    old = tuple(torch.stack([w[k] for w in old], dim=1).reshape(FP.L, -1) for k in range(3))
+    assert all(torch.equal(g, o) for g, o in zip(got, old))
+    want = tuple(convert.to_jax_limbs(c) for c in (x, y, FP.one_like(x)))
+    for k in range(windows):
+        if k:
+            for _ in range(steps):
+                want = G1.double(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g[:, k * 5 : (k + 1) * 5], convert.from_jax_limbs(np.asarray(w)))
+    assert cv.g1_from_device(got) == [hm.g1_mul(pt, 1 << (steps * k))
+                                      for k in range(windows) for pt in pts]
+
+
 @pytest.mark.slow
 def test_tables_equal_kzg_tpu_tables():
     """The JAX package's own table build (a minute on the CPU) gives the

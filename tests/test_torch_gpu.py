@@ -108,3 +108,39 @@ def test_dbl_chain_kernel_matches_plain(cuda, steps):
     p = tuple(_rand(FP, 200, s).to(cuda) for s in (15, 16, 17))
     p[2][:, 7:9] = 0
     assert _same(cv.dbl_chain(p, steps), cv.dbl_chain_plain(p, steps))
+
+
+def test_mont_mul_kernel_on_edge_values(cuda):
+    """Every pair of p - 1, 0, 1 and R mod p (Montgomery one), both fields:
+    the carry chains' extremes."""
+    for F in (FP, FR):
+        edge = [F.modulus - 1, 0, 1, F.R_int % F.modulus]
+        a = F.tensor([x for x in edge for _ in edge], cuda, mont=False)
+        b = F.tensor([y for _ in edge for y in edge], cuda, mont=False)
+        assert _same(fld.mont_mul(a, b, F), fld.mont_mul_plain(a, b, F))
+
+
+def test_scan_buckets_kernel_matches_plain(cuda):
+    """The fused scan on m = 8, C = 37: digit 0, absent digits, a run across
+    chunks and a chunk of one digit, P == Q (chunk 2) and P == -Q (chunk 3)
+    at a chunk's start."""
+    m, C = 8, 37
+    P = m * C
+    rng = np.random.default_rng(18)
+    table = torch.cat([_rand(FP, 64, 19), _rand(FP, 64, 20)]).t().contiguous().to(cuda)
+    rows = rng.integers(0, 64, P)
+    neg = rng.integers(0, 2, P).astype(bool)
+    rows[2 * m + 1], neg[2 * m + 1] = rows[2 * m], neg[2 * m]
+    rows[3 * m + 1], neg[3 * m + 1] = rows[3 * m], ~neg[3 * m]
+    keys = torch.from_numpy(np.where(neg, rows | -(1 << 31), rows).astype(np.int32)).to(cuda)
+    digits = np.concatenate([np.zeros(5), np.full(2 * m + 3, 9),
+                             rng.integers(10, 1 << 15, P - 2 * m - 8)])
+    ds = torch.from_numpy(np.sort(digits).astype(np.int32)).to(cuda)
+    got = scans.scan_buckets(table, keys, ds, m)
+    assert _same(got, scans.scan_buckets_plain(table, keys, ds, m))
+
+
+@pytest.mark.parametrize("steps,windows", [(3, 4), (16, 2)])
+def test_dbl_windows_kernel_matches_plain(cuda, steps, windows):
+    p = (_rand(FP, 200, 21).to(cuda), _rand(FP, 200, 22).to(cuda))
+    assert _same(cv.dbl_windows(p, steps, windows), cv.dbl_windows_plain(p, steps, windows))

@@ -55,7 +55,7 @@ def test_scan_bit_identical_to_kzg_tpu_lax_scan():
     ys = y.view(FP.L, C, m).permute(2, 0, 1)
     _, flag = scans.scan_prefix_madd(xs, ys, fast=True)
     assert bool(flag)
-    runs = scans.scan_runs(xs, ys)
+    runs, _ = scans.scan_prefix_madd(xs, ys, fast=False)
     want_flat, want_totals = jmsm._fb_scan_cond_jit(
         convert.to_jax_limbs(x), convert.to_jax_limbs(y), m)
     for r, w, t in zip(runs, want_flat, want_totals):
@@ -141,13 +141,13 @@ def test_msm_g1_fixed_matches_host(tables64):
     ks = _scalars(64, 25)
     ks[0], ks[1], ks[2] = 0, 1, hm.R - 1
     ks[10] = ks[11] = 1 << 16  # a shared bucket
-    got = msm.msm_g1_fixed(tables, cv.fr_std_words(ks, "cpu"), inf_mask=mask)
+    got = msm.msm_g1_fixed(msm.point_table(tables), cv.fr_std_words(ks, "cpu"), inf_mask=mask)
     expect = sum((i + 1) * k for i, k in enumerate(ks) if i != 7) % hm.R
     assert _affine(got) == [hm.g1_mul(hm.G1_GEN, expect)]
 
 
 def test_msm_g1_fixed_fewer_scalars_than_table(tables64):
-    _, _, _, tables = tables64
+    tables = msm.point_table(tables64[3])
     ks = _scalars(5, 26)
     got = msm.msm_g1_fixed(tables, cv.fr_std_words(ks, "cpu"), chunk=64)
     expect = sum((i + 1) * k for i, k in enumerate(ks)) % hm.R
@@ -158,8 +158,89 @@ def test_msm_g1_fixed_fewer_scalars_than_table(tables64):
         msm.msm_g1_fixed(tables, cv.fr_std_words(_scalars(65, 27), "cpu"))
 
 
+def _scan_case(table_rows, m, C, seed):
+    """Keys and sorted digits for a fused-scan test: digit 0 first, a run of
+    2m + 3 equal digits (a whole chunk of one digit, and runs across chunk
+    boundaries), absent digits, negative digits throughout, and at the start
+    of chunk 2 a pair equal to its predecessor (P == Q: the madd doubles) and
+    at chunk 3 its negation (P == -Q: the sum is infinity)."""
+    P = m * C
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, table_rows, P)
+    neg = rng.integers(0, 2, P).astype(bool)
+    rows[2 * m + 1], neg[2 * m + 1] = rows[2 * m], neg[2 * m]
+    rows[3 * m + 1], neg[3 * m + 1] = rows[3 * m], ~neg[3 * m]
+    keys = torch.from_numpy(np.where(neg, rows | -(1 << 31), rows).astype(np.int32))
+    digits = np.concatenate([np.zeros(5), np.full(2 * m + 3, 9),
+                             rng.integers(10, 1 << 15, P - 2 * m - 8)])
+    return keys, torch.from_numpy(np.sort(digits).astype(np.int32))
+
+
+@pytest.mark.parametrize("m,C", [(8, 16), (16, 5)])
+def test_scan_buckets_plain_equals_the_two_step_path(tables64, m, C):
+    """The fused scan's plain version against the streaming path it
+    replaces: gather the table points (negating y for a negative digit), the
+    exact streaming scan (every prefix), then the chunk totals and the
+    prefix at each digit's last position."""
+    table = msm.point_table(tables64[3])
+    keys, ds = _scan_case(table.shape[0], m, C, 30 + m)
+    totals, U = scans.scan_buckets(table, keys, ds, m)
+    assert all(int(c.abs().sum()) for c in totals)
+    rows = (keys & 0x7FFFFFFF).long()
+    neg = keys < 0
+    x = table[rows, : FP.L].t()
+    y = FP.select(neg, FP.neg(table[rows, FP.L :].t().contiguous()), table[rows, FP.L :].t())
+    xs = x.reshape(FP.L, C, m).permute(2, 0, 1)
+    ys = y.reshape(FP.L, C, m).permute(2, 0, 1)
+    runs, _ = scans.scan_prefix_madd_plain(xs, ys, fast=False)
+    for t, r in zip(totals, runs):
+        assert torch.equal(t, r[-1])
+    P = m * C
+    last = [p for p in range(P) if p == P - 1 or ds[p] != ds[p + 1]]
+    assert len(last) < P and int(ds[0]) == 0
+    slots = ds[last].long()
+    for u, r in zip(U, runs):
+        assert torch.equal(u[:, slots], torch.stack([r[p % m, :, p // m] for p in last], dim=1))
+        rest = torch.ones(u.shape[1], dtype=torch.bool)
+        rest[slots] = False
+        assert int(u[:, rest].abs().sum()) == 0
+    # chunk 3's first two points cancel: its prefix after step 1 is infinity
+    assert cv.g1_from_device(tuple(r[1, :, 3:4] for r in runs)) == [None]
+
+
+def test_scan_buckets_checks_its_operands(tables64):
+    table = msm.point_table(tables64[3])
+    keys, ds = _scan_case(table.shape[0], 8, 4, 40)
+    with pytest.raises(ValueError):
+        scans.scan_buckets(table, keys, ds, 5)  # 5 does not divide 32
+    with pytest.raises(ValueError):
+        scans.scan_buckets(table[:, :12], keys, ds, 8)
+    with pytest.raises(ValueError):
+        scans.scan_buckets(table, keys, ds[:-1], 8)
+
+
+def test_sort_pairs_keys_follow_a_stable_sort():
+    """One sort of the composite key gives the stable sort's order: ties in
+    pair order, the sign in bit 31 of the key."""
+    rng = np.random.default_rng(41)
+    absd = torch.from_numpy(rng.integers(0, 6, (16, 12)))
+    negd = torch.from_numpy(rng.integers(0, 2, (16, 12)).astype(bool))
+    keys, ds = msm.sort_pairs(absd, negd)
+    want_ds, order = torch.sort(absd.reshape(-1), stable=True)
+    assert torch.equal(ds.long(), want_ds)
+    assert torch.equal((keys & 0x7FFFFFFF).long(), order)
+    assert torch.equal(keys < 0, negd.reshape(-1)[order])
+
+
+def test_point_table_is_point_major(tables64):
+    tx, ty = tables64[3]
+    table = msm.point_table((tx, ty))
+    assert table.shape == (tx.shape[1], 24) and table.is_contiguous()
+    assert torch.equal(table[:, :12], tx.t()) and torch.equal(table[:, 12:], ty.t())
+
+
 def test_fb_chunk_size():
-    assert msm.fb_chunk_size(16 * (1 << 20)) == 512
+    assert msm.fb_chunk_size(16 * (1 << 20)) == 128  # 131,072 chunks at 2^20 points
     assert msm.fb_chunk_size(16 * 64) == 64
     assert msm.fb_chunk_size(32, 64) == 32
 
@@ -179,8 +260,9 @@ def test_tree_reduce_and_batched_affine_msm():
 
 @pytest.mark.slow
 def test_msm_on_kzg_tpu_tables(tables64):
-    """The port's MSM on the JAX package's own precompute_g1_tables output.
-    Slow: compiling the JAX table build takes over a minute on a cold cache."""
+    """The port's MSM on the JAX package's own precompute_g1_tables output,
+    and the port's tables (one windowed doubling chain) equal to it. Slow:
+    compiling the JAX table build takes over a minute on a cold cache."""
     import jax.numpy as jnp
 
     from kzg_tpu.ops import msm as jmsm
@@ -189,7 +271,11 @@ def test_msm_on_kzg_tpu_tables(tables64):
     jt = jmsm.precompute_g1_tables(
         (jnp.asarray(convert.to_jax_limbs(x)), jnp.asarray(convert.to_jax_limbs(y))),
         jnp.asarray(mask.numpy()))
+    # the windowed doubling chain's tables equal the JAX package's word for word
+    for got, want in zip(tables64[3], jt[:2]):
+        assert torch.equal(got, convert.from_jax_limbs(np.asarray(want)))
     tables = convert.tables_from_jax(np.asarray(jt[0]), np.asarray(jt[1]), device="cpu")
+    assert torch.equal(tables, msm.point_table(tables64[3]))
     ks = _scalars(64, 29)
     got = msm.msm_g1_fixed(tables, cv.fr_std_words(ks, "cpu"), inf_mask=mask)
     expect = sum((i + 1) * k for i, k in enumerate(ks) if i != 7) % hm.R
