@@ -47,7 +47,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    streaming scan in both modes at the shape the fused scan ran on the main
    path (m steps over C chunks), the fold over pre-gathered entries (K8) at
    the ceremony's fold shape, and the doubling chain (K7) at 2^16 lanes and
-   16 steps. Then the stage times of the ceremony and of the proof.
+   16 steps; and the field multiply's probes, K1 at 2^24 Fp lanes and K2's
+   doubling at 2^20 lanes (the shapes every checkout's table build has run,
+   so that two checkouts' runs compare field.cuh). Then the stage times of
+   the ceremony and of the proof.
 6. profile: one warm 2^20 commit under torch.profiler, device time by kernel;
    the commit's index gathers must take less than one 805 MB table gather
    would at the card's memory rate (the scan reads its own table points).
@@ -58,16 +61,20 @@ integer multiply-adds / 16.7 T/s (132 SMs x 64 IMAD per clock x 1.98 GHz, the
 H100 SXM boost clock; CUDA C++ Programming Guide, arithmetic instruction
 throughput for compute capability 9.0). A 32x32->64 multiply-add counts as
 two 32-bit multiply-adds, so an Fp Montgomery multiply (12 words, CIOS) is
-2 * (2 * 12^2 + 12) = 600 and an Fr one 2 * (2 * 8^2 + 8) = 272. A point add
-is 16 Fp multiplies, a mixed add 11, a doubling 7; a prefix sum of W points
+2 * (2 * 12^2 + 12) = 600 and an Fr one 2 * (2 * 8^2 + 8) = 272. An Fp
+square needs only the 78 distinct word products a_i a_k (i <= k) before the
+12 reduction rows: 2 * (78 + 12^2 + 12) = 468. The point formulas are counted
+in their cheapest published forms (M an Fp multiply, S a square): a point
+add 11M + 5S (add-2007-bl) = 8,940, a mixed add 7M + 4S (madd-2007-bl) =
+6,072, a doubling 2M + 5S (dbl-2009-l) = 3,540. A prefix sum of W points
 needs W - 1 adds (W - 2 when exclusive), whatever order a kernel adds in; a
 fold needs one mixed add per non-zero entry after a lane's first (the first
 is a copy), counted on the inputs of the run. The fused scan over P pairs in
 C chunks needs P - C mixed adds (a chunk's first is a copy) and moves 96 P
 bytes of table rows, 8 P of keys and digits, and 3 * 48 (C + 2^15 + 1) of
-totals and bucket slots; the windowed chain over n lanes needs 7 Fp
-multiplies per doubling, (first + steps (windows - 1)) doublings a lane, and
-moves 96 n bytes in and 144 n a window out.
+totals and bucket slots; the windowed chain over n lanes needs
+(first + steps (windows - 1)) doublings a lane and moves 96 n bytes in and
+144 n a window out.
 """
 
 from __future__ import annotations
@@ -91,7 +98,11 @@ PLAIN_CHUNK = 1 << 20  # lanes per plain call in the replays: bounds its tempora
 HBM_BYTES_PER_S = 3.35e12
 INT_MAD_PER_S = 132 * 64 * 1.98e9
 FP_MUL_OPS = 2 * (2 * 12 * 12 + 12)
+FP_SQR_OPS = 2 * (12 * 13 // 2 + 12 * 12 + 12)
 FR_MUL_OPS = 2 * (2 * 8 * 8 + 8)
+G1_ADD_OPS = 11 * FP_MUL_OPS + 5 * FP_SQR_OPS
+G1_MADD_OPS = 7 * FP_MUL_OPS + 4 * FP_SQR_OPS
+G1_DBL_OPS = 2 * FP_MUL_OPS + 5 * FP_SQR_OPS
 FP_BYTES = 48
 
 # kernel -> (source, the TPU kernel it replaces)
@@ -766,11 +777,11 @@ def replay_case(ctx, spec):
         if name == "g1_double":
             return (lambda: flat(cv.g1_double(view(p))),
                     lambda: chunked(torch, cv.g1_double_plain, (p,), n),
-                    6 * FP_BYTES * n, 7 * FP_MUL_OPS * n)
+                    6 * FP_BYTES * n, G1_DBL_OPS * n)
         if name == "g1_add":
             return (lambda: flat(cv.g1_add(view(p), view(q))),
                     lambda: chunked(torch, cv.g1_add_plain, (p, q), n),
-                    9 * FP_BYTES * n, 16 * FP_MUL_OPS * n)
+                    9 * FP_BYTES * n, G1_ADD_OPS * n)
         fast = spec[2]
 
         def madd():
@@ -779,7 +790,7 @@ def replay_case(ctx, spec):
 
         return (madd,
                 lambda: chunked(torch, lambda x, y: cv.g1_madd_plain(x, y, fast), (p, qa), n),
-                (8 * FP_BYTES + (4 if fast else 0)) * n, 11 * FP_MUL_OPS * n)
+                (8 * FP_BYTES + (4 if fast else 0)) * n, G1_MADD_OPS * n)
     if name == "scan_madd":
         m, _, C = shape
         fast = spec[2]
@@ -787,7 +798,7 @@ def replay_case(ctx, spec):
         ys = ctx.rand_field(FP, m * C).view(FP.L, m, C).permute(1, 0, 2)
         return (lambda: scans.scan_prefix_madd(xs, ys, fast=fast),
                 lambda: scans.scan_prefix_madd_plain(xs, ys, fast),
-                5 * FP_BYTES * m * C, 11 * FP_MUL_OPS * m * C)
+                5 * FP_BYTES * m * C, G1_MADD_OPS * m * C)
     if name == "scan_buckets":
         (rows, _), (P,), m, nb = shape, spec[2], spec[3], spec[4]
         C = P // m
@@ -802,7 +813,7 @@ def replay_case(ctx, spec):
                                       generator=ctx.gen))[0]
         return (lambda: scans.scan_buckets(table, keys, ds, m),
                 lambda: scans.scan_buckets_plain(table, keys, ds, m, nb),
-                2 * FP_BYTES * P + 8 * P + 3 * FP_BYTES * (C + nb), 11 * FP_MUL_OPS * (P - C))
+                2 * FP_BYTES * P + 8 * P + 3 * FP_BYTES * (C + nb), G1_MADD_OPS * (P - C))
     if name == "dbl_windows":
         steps, windows = spec[2], spec[3]
         n = shape[1]
@@ -813,7 +824,7 @@ def replay_case(ctx, spec):
         return (lambda: cv.dbl_windows(p, steps, windows),
                 lambda: tuple(c.reshape(FP.L, windows * n) for c in chunked(torch, plain, p, n)),
                 2 * FP_BYTES * n + 3 * FP_BYTES * windows * n,
-                7 * steps * (windows - 1) * FP_MUL_OPS * n)
+                steps * (windows - 1) * G1_DBL_OPS * n)
     if name == "hs_scan_points":
         reverse, exclusive = spec[2], spec[3]
         W = shape[-1]
@@ -825,7 +836,7 @@ def replay_case(ctx, spec):
                     *(c.view(shape) for c in pts), reverse=reverse, exclusive=exclusive)),
                 lambda: tuple(c.reshape(FP.L, R * W) for c in hs_plain(
                     ctx, tuple(c.view(FP.L, R, W) for c in pts), reverse, exclusive)),
-                6 * FP_BYTES * R * W, adds * 16 * FP_MUL_OPS)
+                6 * FP_BYTES * R * W, adds * G1_ADD_OPS)
     if name in ("gen_fold", "fold_entries"):
         from kzg_torch.ops import genmul
 
@@ -834,7 +845,7 @@ def replay_case(ctx, spec):
         digits = fold_digits(ctx, n)
         # the madds these digits need: one per non-zero digit after a lane's first
         nz = (digits != 0).sum(0)
-        n_ops = int((nz - (nz > 0).to(nz.dtype)).sum()) * 11 * FP_MUL_OPS
+        n_ops = int((nz - (nz > 0).to(nz.dtype)).sum()) * G1_MADD_OPS
         if name == "gen_fold":
             return (lambda: genmul.gen_fold(*tables, digits),
                     lambda: chunked(torch, lambda d: genmul.gen_fold_plain(*tables, d.long()),
@@ -850,7 +861,7 @@ def replay_case(ctx, spec):
         p = special_points(ctx, n)[0]
         return (lambda: cv.dbl_chain(p, steps),
                 lambda: chunked(torch, lambda *q: cv.dbl_chain_plain(q, steps), p, n),
-                6 * FP_BYTES * n, 7 * steps * FP_MUL_OPS * n)
+                6 * FP_BYTES * n, steps * G1_DBL_OPS * n)
     raise ValueError(f"no replay for {spec}")
 
 
@@ -929,7 +940,7 @@ def phase_stream_scan(ctx, calls):
     print(f"  scan_madd at {(m, FP.L, C)}: fast {t[0]:.3f} / {t[3]:.3f} ms, exact {t[1]:.3f} / "
           f"{t[2]:.3f} ms, plain fast {fast_plain_ms:.1f} / exact {exact_plain_ms:.1f} ms",
           flush=True)
-    b, by = bound_ms(5 * FP_BYTES * m * C, 11 * FP_MUL_OPS * m * C)
+    b, by = bound_ms(5 * FP_BYTES * m * C, G1_MADD_OPS * m * C)
     entry = {"ms": (t[0] + t[3]) / 2, "plain_ms": fast_plain_ms, "err": err, "calls": 1,
              "launches": 0, "bound_ms": b, "bound_by": by, "shape": str(((m, FP.L, C), "fast"))}
     return entry, {"fast_ms": (t[0] + t[3]) / 2, "exact_ms": (t[1] + t[2]) / 2,
@@ -940,12 +951,17 @@ def phase_off_path(ctx):
     """K8 and K7 have no caller on a path (the JAX package's callers are its
     tests and a bench): each is checked against its plain version and timed
     at fixed shapes, K8 at the ceremony's fold shape, K7 at the bench's
-    (128 lanes, 5 steps) and at 2^16 lanes and 16 steps, the one reported."""
+    (128 lanes, 5 steps) and at 2^16 lanes and 16 steps, the one reported.
+    Then the field multiply's two probes, at shapes any checkout's table
+    build has run, so that two checkouts' runs compare the header: K1 at
+    2^24 Fp lanes and K2's doubling at 2^20 lanes (reported beside, not in,
+    their kernels' rows)."""
     from kzg_torch.ops.field import FP
 
     out, extra = {}, {}
     for spec in (("fold_entries", (32, FP.L, SRS_CHUNK)), ("dbl_chain", (FP.L, 128), 5),
-                 ("dbl_chain", (FP.L, CHECK_LANES), DBL_STEPS)):
+                 ("dbl_chain", (FP.L, CHECK_LANES), DBL_STEPS),
+                 ("mont_mul_fp", (FP.L, 1 << 24)), ("g1_double", (FP.L, 1 << LOG_N))):
         kern, plain, n_bytes, n_ops = replay_case(ctx, spec)
         plain_ms, want = ctx.time_once(plain)
         err = check(ctx, f"{spec[0]} {spec[1:]}", kern(), want)
@@ -953,10 +969,14 @@ def phase_off_path(ctx):
         b, by = bound_ms(n_bytes, n_ops)
         print(f"    {ms:.4f} ms kernel, {plain_ms:.1f} ms plain, bound {b:.4f} ms ({by})",
               flush=True)
+        entry = {"ms": ms, "plain_ms": plain_ms, "err": err, "calls": 1, "launches": 0,
+                 "bound_ms": b, "bound_by": by, "shape": str(spec[1:])}
+        if spec[0] in ("mont_mul_fp", "g1_double"):
+            extra[f"{spec[0]} {entry['shape']}"] = entry
+            continue
         if spec[0] in out:
             extra[f"{spec[0]} {out[spec[0]]['shape']}"] = out[spec[0]]
-        out[spec[0]] = {"ms": ms, "plain_ms": plain_ms, "err": err, "calls": 1, "launches": 0,
-                        "bound_ms": b, "bound_by": by, "shape": str(spec[1:])}
+        out[spec[0]] = entry
     return out, extra
 
 
@@ -1007,7 +1027,7 @@ def main() -> int:
     for label, (launches, calls) in paths.items():
         print(f"== replay: {label}", flush=True)
         per_path[label] = phase_replay(ctx, label, launches, calls, done)
-    print("== the kernels no path launches: K8, K7", flush=True)
+    print("== the kernels no path launches (K8, K7), and the multiply's probes", flush=True)
     off_path, times["off_path_other_shapes"] = phase_off_path(ctx)
     print("== the streaming scan, both modes, at the main path's scan shape", flush=True)
     off_path["scan_madd"], times["scan_modes"] = phase_stream_scan(ctx, paths[MAIN][1])

@@ -9,12 +9,12 @@
 //
 // Replaces kzg_tpu/ops/pallas_msm.py double_chain, which runs one doubling
 // per grid step with the point held in VMEM scratch. Here a thread loads its
-// point once, runs g1.cuh's g1_double (dbl-2009-l, 7 Fp multiplies) in
+// point once, runs g1.cuh's g1_double (dbl-2009-l, 2M + 5S) in
 // registers and writes each window once; any lane count works. With z ==
 // nullptr the input is affine and z is the Montgomery one.
 //
-// Bound on an H100: operations. A lane does 7 Fp multiplies (~4,200 32-bit
-// multiply-adds) a doubling and moves 96 or 144 bytes in and 144 bytes a
+// Bound on an H100: operations. A lane does 2 Fp multiplies and 5 squares
+// (~3,540 32-bit multiply-adds) a doubling and moves 96 or 144 bytes in and 144 bytes a
 // window out. The compiler gives the doubling 128 registers a thread (4
 // blocks of 128 an SM) without spills.
 #include "g1.cuh"

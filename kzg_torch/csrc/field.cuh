@@ -15,8 +15,9 @@
 // for m N with N as immediates: about 4 L^2 32-bit multiply-adds and no
 // 64-bit accumulator, so no IMAD.WIDE and no separate carry adds or shifts.
 // The add, the subtract and the conditional subtract are carry chains too.
-// An Fp square (mont_sqr<12>, five of the seven multiplies of a doubling)
-// forms the 24-word a^2 from half the word products and then reduces it.
+// An Fp square (mont_sqr<12>, five of the seven products of a doubling)
+// forms the 24-word a^2 from the 78 distinct word products (a multiply
+// takes 144) and then reduces it: about 468 multiply-adds against 600.
 // Each chain is one asm block: the carry flag does not survive C code between
 // asm statements. The constants are derived from kzg_torch/utils/hostmath.py,
 // and tests/test_torch_field.py checks them (and interprets the chains)

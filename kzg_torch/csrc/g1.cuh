@@ -73,7 +73,8 @@ __device__ __forceinline__ jac_t g1_double(const jac_t& p) {
   return r;
 }
 
-// add-2007-bl with the exceptional lanes: 11M + 5S.
+// add-2007-bl with the exceptional lanes: 12M + 4S (Z3 as Z1 Z2 2H, as the JAX
+// package computes it; the published form's square trick makes it 11M + 5S).
 __device__ __forceinline__ jac_t g1_add(const jac_t& p, const jac_t& q) {
   const fp_t Z1Z1 = fsqr(p.z);
   const fp_t Z2Z2 = fsqr(q.z);
@@ -102,7 +103,8 @@ __device__ __forceinline__ jac_t g1_add(const jac_t& p, const jac_t& q) {
   return out;
 }
 
-// madd-2007-bl core (Z2 = 1): 7M + 4S. Returns the formula's output and the
+// madd-2007-bl core (Z2 = 1): 8M + 3S (I as (2H)^2 and Z3 as 2H Z1; the
+// published form is 7M + 4S). Returns the formula's output and the
 // two equality tests the exceptional lanes need.
 __device__ __forceinline__ jac_t g1_madd_core(const jac_t& p, const fp_t& x2, const fp_t& y2,
                                               bool& same_x, bool& same_y) {

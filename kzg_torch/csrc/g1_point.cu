@@ -4,10 +4,10 @@
 // add and double). Each coordinate is a (12, n) limb-major int32 array; the
 // formulas are the device functions of g1.cuh, which the scan kernels reuse.
 //
-// Bound on an H100: operations. A madd moves 8 * 48 bytes and does 11 field
-// multiplies (~6,600 IMADs), an add 9 * 48 bytes and 16 multiplies, a double
-// 6 * 48 bytes and 7 multiplies: 17 to 25 IMADs per byte, above the card's
-// ~5 per byte. The running values stay in registers; the rare P == Q lane
+// Bound on an H100: operations. A madd moves 8 * 48 bytes and needs 7 field
+// multiplies and 4 squares (~6,070 IMADs), an add 9 * 48 bytes and 11 + 5
+// (~8,940), a double 6 * 48 bytes and 2 + 5 (~3,540): 12 to 21 IMADs per
+// byte, above the card's ~5 per byte. The running values stay in registers; the rare P == Q lane
 // branches into the doubling instead of every lane computing it.
 #include "g1.cuh"
 

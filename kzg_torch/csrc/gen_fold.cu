@@ -19,8 +19,8 @@
 // The TPU kernels' x | y << 16 packing and lazy 2^400 domain answered the
 // TPU's gather and VPU costs; here entries are canonical Montgomery words.
 //
-// Bound on an H100: operations. A lane does up to W mixed adds of 11 Fp
-// multiplies (~6,600 32-bit multiply-adds each) and moves 128 bytes of
+// Bound on an H100: operations. A lane does up to W mixed adds of 7 Fp
+// multiplies and 4 squares (~6,070 32-bit multiply-adds each) and moves 128 bytes of
 // digits and 144 bytes of output, far above the card's ~5 multiply-adds per
 // byte.
 #include "g1.cuh"

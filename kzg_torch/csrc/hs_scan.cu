@@ -16,7 +16,7 @@
 // (reverse = 1) is the prefix scan in reversed lane order. The exclusive
 // shift is data movement and stays in the wrapper.
 //
-// Bound on an H100: operations (a 16-multiply add per lane and level against
+// Bound on an H100: operations (a point add, ~8,940 IMADs, per lane and level against
 // 6 * 48 bytes moved per lane). Shared memory holds one block of points
 // (256 * 144 bytes = 36 KB); each level is two barriers and one add.
 #include "g1.cuh"

@@ -25,7 +25,7 @@
 // flag to read back.
 //
 // Bound of the streaming scan on an H100: operations. A step reads 2 * 48
-// bytes and writes 3 * 48 bytes for 11 field multiplies (~6,600 IMADs), ~27
+// bytes and writes 3 * 48 bytes for a mixed add (~6,070 IMADs), ~25
 // IMADs per byte. The input streams are addressed by strides (step, limb;
 // lane stride 1), so a permuted view of the gathered (12, m, C) stream is read
 // in place without a transposing copy; a warp reads 32 neighbouring chunks,
@@ -83,8 +83,8 @@ __global__ void __launch_bounds__(128) scan_madd_kernel(const u32* __restrict__ 
 // pieces, no registers held across the step) while the current step's
 // madd runs; keys are read two steps ahead.
 //
-// Bound on an H100: operations (11 Fp multiplies a pair, ~30 32-bit
-// multiply-adds a byte moved). The madd needs about 200 registers a thread
+// Bound on an H100: operations (a mixed add a pair, ~6,070 32-bit
+// multiply-adds, ~60 a byte moved). The madd needs about 200 registers a thread
 // unbounded; 3 blocks of 128 an SM (168 registers, a few spilled words)
 // ran faster than 2 (no spills) or 4 (128 registers, ~0.5 KB of spills a
 // thread), so the chunk length m is chosen for that occupancy.
