@@ -18,8 +18,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    it replaced; for the window fold a zero digit in every window position,
    an all-zero scalar, k = r - 1 and a lane whose partial sum equals its
    next table entry, so that the exact madd doubles; the doubling chain at
-   1, 5 and 16 steps and in windows); the expected result is bit-identical
-   output.
+   1, 5 and 16 steps and in windows; the batched inversion in both fields at
+   n = 1, 2, a partial run in a partial block, all-zero input, zeros at run
+   and block boundaries and the values 1, p - 1 and R mod p, where every
+   non-zero lane times its inverse must be Montgomery one; K4 at W = 32, 257,
+   a partial run in a partial segment over R > 1 rows, and the commit's
+   131,072, in all four modes); the expected result is bit-identical output.
 4. paths, each driven through the entry points with the launch counts set to
    0 just before and read just after, and every call of a kernel wrapper
    logged with its shapes:
@@ -30,8 +34,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      host oracle s^i G1 on spot lanes.
    - main: the fixed-base commit at n = 2^20 against the ceremony's SRS:
      DeviceSRS.fixed_tables() and the first Polynomial.commit. The table
-     build must launch the windowed doubling chain once and no 2^20-lane
-     g1_double; the commit the fused scan and not the streaming one.
+     build must launch the windowed doubling chain once, no 2^20-lane
+     g1_double and at most MAX_FP_MULS_TABLES Fp multiplies (its inversion
+     is the inversion kernel's three launches); the commit the fused scan
+     and not the streaming one. The ceremony may launch at most
+     MAX_FP_MULS_CEREMONY Fp multiplies.
    - proof: Polynomial.evaluate at a seeded x and Evaluation.generate_proof
      (sub, divide_by_root, the quotient's commit against the same tables).
      y must equal the host's Horner value P(x), and the proof
@@ -74,7 +81,10 @@ C chunks needs P - C mixed adds (a chunk's first is a copy) and moves 96 P
 bytes of table rows, 8 P of keys and digits, and 3 * 48 (C + 2^15 + 1) of
 totals and bucket slots; the windowed chain over n lanes needs
 (first + steps (windows - 1)) doublings a lane and moves 96 n bytes in and
-144 n a window out.
+144 n a window out. The batched inversion of n lanes needs 3 (n - 1)
+multiplies (Montgomery's trick) and one Fermat ladder x^(N - 2) in fixed
+4-bit windows (380 squares and 105 multiplies for Fp, 252 and 73 for Fr,
+each Fr square a multiply), and moves 2 * 4L n bytes.
 """
 
 from __future__ import annotations
@@ -104,11 +114,15 @@ G1_ADD_OPS = 11 * FP_MUL_OPS + 5 * FP_SQR_OPS
 G1_MADD_OPS = 7 * FP_MUL_OPS + 4 * FP_SQR_OPS
 G1_DBL_OPS = 2 * FP_MUL_OPS + 5 * FP_SQR_OPS
 FP_BYTES = 48
+MAX_FP_MULS_TABLES = 10  # Fp multiply launches the table build may make
+MAX_FP_MULS_CEREMONY = 100  # and the whole ceremony
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "mont_mul_fp": ("kzg_torch/csrc/mont_mul.cu", "kzg_tpu/ops/pallas_field.py:355"),
     "mont_mul_fr": ("kzg_torch/csrc/mont_mul.cu", "kzg_tpu/ops/pallas_field.py:355"),
+    "inv_batch_fp": ("kzg_torch/csrc/inv_batch.cu", "kzg_tpu/ops/field.py:273"),
+    "inv_batch_fr": ("kzg_torch/csrc/inv_batch.cu", "kzg_tpu/ops/field.py:273"),
     "g1_double": ("kzg_torch/csrc/g1_point.cu", "kzg_tpu/ops/pallas_curve.py:260"),
     "g1_add": ("kzg_torch/csrc/g1_point.cu", "kzg_tpu/ops/pallas_curve.py:260"),
     "g1_madd": ("kzg_torch/csrc/g1_point.cu", "kzg_tpu/ops/pallas_curve.py:260"),
@@ -123,11 +137,14 @@ KERNELS = {
 # kernel -> its CUDA functions in the -Xptxas -v report
 DEVICE_FUNCTIONS = {
     "mont_mul_fp": ["mont_mul_kernel<12>"], "mont_mul_fr": ["mont_mul_kernel<8>"],
+    "inv_batch_fp": ["inv_up_kernel<12>", "inv_top_kernel<12>", "inv_down_kernel<12>"],
+    "inv_batch_fr": ["inv_up_kernel<8>", "inv_top_kernel<8>", "inv_down_kernel<8>"],
     "g1_double": ["g1_double_kernel"], "g1_add": ["g1_add_kernel"],
     "g1_madd": ["g1_madd_kernel"],
     "scan_madd": ["scan_madd_kernel<true>", "scan_madd_kernel<false>"],
     "scan_buckets": ["scan_buckets_kernel"],
-    "hs_scan_points": ["hs_block_kernel", "hs_offset_kernel"],
+    "hs_scan_points": ["hs_block_kernel", "hs_runs_kernel", "hs_offsets_kernel",
+                       "hs_apply_kernel"],
     "gen_fold": ["gen_fold_kernel"], "fold_entries": ["fold_entries_kernel"],
     "dbl_chain": ["dbl_chain_kernel"], "dbl_windows": ["dbl_chain_kernel"],
 }
@@ -139,9 +156,9 @@ PROOF = f"opening proof 2^{LOG_N} (evaluate + generate_proof)"
 BATCHED = f"batched-affine commit {BATCHED_N}"
 # the kernels each path must launch
 PATH_KERNELS = {
-    CEREMONY: {"mont_mul_fp", "mont_mul_fr", "g1_madd", "gen_fold"},
-    MAIN: {"mont_mul_fp", "mont_mul_fr", "dbl_windows", "g1_double", "g1_add", "scan_buckets",
-           "hs_scan_points"},
+    CEREMONY: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "g1_madd", "gen_fold"},
+    MAIN: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "dbl_windows", "g1_double", "g1_add",
+           "scan_buckets", "hs_scan_points"},
     PROOF: {"mont_mul_fr", "g1_double", "g1_add", "scan_buckets", "hs_scan_points"},
     BATCHED: {"mont_mul_fr", "g1_double", "g1_add", "g1_madd"},
 }
@@ -150,6 +167,43 @@ PATH_KERNELS = {
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+def ladder_ops(F) -> int:
+    """IMADs of one Fermat ladder x^(N - 2) in fixed 4-bit windows: a table
+    of x^2 .. x^15 (14 multiplies), then 4 squares a window below the top one
+    and a multiply for each non-zero window."""
+    e = F.modulus - 2
+    nibbles = [(e >> (4 * k)) & 15 for k in range((e.bit_length() + 3) // 4)]
+    sqr = FP_SQR_OPS if F.L == 12 else FR_MUL_OPS
+    mul = FP_MUL_OPS if F.L == 12 else FR_MUL_OPS
+    return 4 * (len(nibbles) - 1) * sqr + (14 + sum(1 for d in nibbles[:-1] if d)) * mul
+
+
+def inv_case(ctx, F, n: int):
+    """(L, n) seeded values for the inversion with zero lanes: the first,
+    the last and, when they exist, lanes 31, 32, 255, 256 (thread and block
+    boundaries of the first pass' layout, whose runs stride 256 lanes) and
+    8191, 8192 (block boundaries); lanes 1-3 hold 1, N - 1 and R mod N."""
+    a = ctx.rand_field(F, n)
+    a[:, 0] = 0
+    a[:, n - 1] = 0
+    if n >= 8:
+        a[:, 1:4] = F.tensor([1, F.modulus - 1, F.R_int % F.modulus], ctx.device, mont=False)
+    zeros = [i for i in (31, 32, 255, 256, 8191, 8192) if i < n]
+    a[:, zeros] = 0
+    return a
+
+
+def check_inverse(ctx, F, a, inv) -> None:
+    """Every non-zero lane of a times its inverse is Montgomery one, and
+    every zero lane's inverse is zero."""
+    from kzg_torch.ops import field as fld
+
+    nz = ~F.is_zero(a)
+    prod = fld.mont_mul_plain(a, inv, F)
+    if not bool((prod[:, nz] == F.const("ONE", ctx.device)).all()) or bool(inv[:, ~nz].any()):
+        raise AssertionError(f"inv_batch {F.name}: a lane times its inverse is not one")
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -358,6 +412,7 @@ def gathered_entries(ctx, tables, digits):
 
 
 def phase_kernels(ctx):
+    torch = ctx.torch
     from kzg_torch.ops import curve as cv
     from kzg_torch.ops import field as fld
     from kzg_torch.ops import scans
@@ -442,8 +497,24 @@ def phase_kernels(ctx):
             check(ctx, f"dbl_windows (W={W}, steps={steps}, windows={windows})",
                   cv.dbl_windows(p[:2], steps, windows), cv.dbl_windows_plain(p[:2], steps, windows))
 
-    # K4: all four modes at W = 32 and W = 32768 (R = 3 and 1 rows)
-    for R, W in ((3, 32), (1, 32768)):
+    # the batched inversion: n = 1, 2, a partial run in a partial block
+    # (the first pass' blocks hold 256 * INV_RUN lanes), two blocks and one
+    # lane, all zero
+    for F in (FP, FR):
+        for n_inv in (1, 2, 300, fld.INV_BLOCK * fld.INV_RUN + 300 + 7,
+                      2 * fld.INV_BLOCK * fld.INV_RUN + 1):
+            a = inv_case(ctx, F, n_inv)
+            got = F.inv_batch(a)
+            check(ctx, f"inv_batch {F.name} (n={n_inv}, zeros at run and block boundaries, "
+                  f"1 / p - 1 / R mod p)", got, F.inv_batch_plain(a))
+            check_inverse(ctx, F, a, got)
+        z = torch.zeros(F.L, 5000, dtype=torch.int32, device=ctx.device)
+        check(ctx, f"inv_batch {F.name} (n=5000, all zero)", F.inv_batch(z), z)
+
+    # K4: all four modes at one block (3 x 32), one segment with a partial
+    # run (257), a partial run in a partial segment over 2 rows, and the
+    # commit's 131,072
+    for R, W in ((3, 32), (1, 257), (2, 2641), (1, 131072)):
         pts = [ctx.rand_field(FP, R * W).view(FP.L, R, W) for _ in range(3)]
         pts[2][:, :, 1::7] = 0  # infinity lanes
         for reverse in (False, True):
@@ -471,6 +542,7 @@ def logging_calls():
         "hs_scan_points", tuple(x.shape), reverse, exclusive)
     specs = [
         (fld, "mont_mul", lambda a, b, F: (f"mont_mul_{F.name.lower()}", tuple(a.shape))),
+        (fld, "inv_batch", lambda a, F: (f"inv_batch_{F.name.lower()}", tuple(a.shape))),
         (cv, "g1_double", lambda p: ("g1_double", tuple(p[0].shape))),
         (cv, "g1_add", lambda p, q: ("g1_add", tuple(p[0].shape))),
         (cv, "g1_madd", lambda p, q, fast=False: ("g1_madd", tuple(p[0].shape), fast)),
@@ -526,6 +598,7 @@ def drive(ctx, label, fn):
 def phase_paths(ctx):
     torch = ctx.torch
     from kzg_torch import Polynomial, Scalar
+    from kzg_torch.ops import _build
     from kzg_torch.ops import curve as cv
     from kzg_torch.ops import genmul
     from kzg_torch.ops.field import FR
@@ -586,9 +659,17 @@ def phase_paths(ctx):
 
     def main_path():
         t_tab, _ = ctx.time_once(srs.fixed_tables)
+        tab_launches.update(_build.LAUNCHES)
         return t_tab, poly.commit(srs)
 
+    tab_launches = collections.Counter()
     t_path, (t_tab, c), launches, calls = drive(ctx, MAIN, main_path)
+    for label, got, cap in (("the table build", tab_launches, MAX_FP_MULS_TABLES),
+                            ("the ceremony", cer_launches, MAX_FP_MULS_CEREMONY)):
+        if got.get("mont_mul_fp", 0) > cap:
+            raise AssertionError(f"{label} made {got['mont_mul_fp']} Fp multiply launches "
+                                 f"(at most {cap})")
+    print(f"  the table build's launches {dict(tab_launches)}", flush=True)
     wide_doubles = [spec for spec in calls if spec[0] == "g1_double" and spec[1][-1] >= n]
     if launches.get("dbl_windows") != 1 or wide_doubles:
         raise AssertionError(f"the table build made {launches.get('dbl_windows', 0)} windowed "
@@ -653,6 +734,7 @@ def phase_paths(ctx):
     return paths, {"ladder_srs_ms": t_srs, "ladder_to_affine_ms": t_aff,
                    "ceremony_first_ms": t_cer, "ceremony_ms": cer_warm[1],
                    "ceremony_runs_ms": cer_warm, "tables_ms": t_tab,
+                   "tables_launches": dict(tab_launches),
                    "first_commit_ms": t_path - t_tab, "commit_ms": med, "commit_runs_ms": times,
                    "peak_gib_tables_and_first_commit": peak_path, "peak_gib_warm_commits": peak_commit,
                    "first_proof_ms": t_proof, "stages": stages,
@@ -768,6 +850,14 @@ def replay_case(ctx, spec):
         return (lambda: fld.mont_mul(a.view(shape), b.view(shape), F).reshape(F.L, n),
                 lambda: chunked(torch, lambda x, y: fld.mont_mul_plain(x, y, F), (a, b), n),
                 3 * 4 * F.L * n, ops * n)
+    if name.startswith("inv_batch"):
+        F = FP if name == "inv_batch_fp" else FR
+        n = math.prod(shape[1:])
+        a = inv_case(ctx, F, n)
+        mul = FP_MUL_OPS if F is FP else FR_MUL_OPS
+        return (lambda: F.inv_batch(a.view(shape)).reshape(F.L, n),
+                lambda: chunked(torch, F.inv_batch_plain, (a,), n),
+                2 * 4 * F.L * n, 3 * (n - 1) * mul + ladder_ops(F))
     if name in ("g1_double", "g1_add", "g1_madd"):
         n = math.prod(shape[1:])
         p, q = special_points(ctx, n)
@@ -955,11 +1045,13 @@ def phase_off_path(ctx):
     Then the field multiply's two probes, at shapes any checkout's table
     build has run, so that two checkouts' runs compare the header: K1 at
     2^24 Fp lanes and K2's doubling at 2^20 lanes (reported beside, not in,
-    their kernels' rows)."""
-    from kzg_torch.ops.field import FP
+    their kernels' rows). The Fr inversion has no caller on a path either:
+    it is checked and timed at 2^20 lanes."""
+    from kzg_torch.ops.field import FP, FR
 
     out, extra = {}, {}
-    for spec in (("fold_entries", (32, FP.L, SRS_CHUNK)), ("dbl_chain", (FP.L, 128), 5),
+    for spec in (("fold_entries", (32, FP.L, SRS_CHUNK)), ("inv_batch_fr", (FR.L, 1 << LOG_N)),
+                 ("dbl_chain", (FP.L, 128), 5),
                  ("dbl_chain", (FP.L, CHECK_LANES), DBL_STEPS),
                  ("mont_mul_fp", (FP.L, 1 << 24)), ("g1_double", (FP.L, 1 << LOG_N))):
         kern, plain, n_bytes, n_ops = replay_case(ctx, spec)
@@ -1027,7 +1119,8 @@ def main() -> int:
     for label, (launches, calls) in paths.items():
         print(f"== replay: {label}", flush=True)
         per_path[label] = phase_replay(ctx, label, launches, calls, done)
-    print("== the kernels no path launches (K8, K7), and the multiply's probes", flush=True)
+    print("== the kernels no path launches (K8, K7, the Fr inversion), and the multiply's probes",
+          flush=True)
     off_path, times["off_path_other_shapes"] = phase_off_path(ctx)
     print("== the streaming scan, both modes, at the main path's scan shape", flush=True)
     off_path["scan_madd"], times["scan_modes"] = phase_stream_scan(ctx, paths[MAIN][1])

@@ -41,6 +41,17 @@ static __constant__ u32 FP_ONE[12] = {
 static __constant__ u32 FR_N[8] = {
     0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
     0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
+// Montgomery one: 2^256 mod R
+static __constant__ u32 FR_ONE[8] = {
+    0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
+    0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
+// Fermat exponents N - 2 (the inversion ladder of inv_batch.cu)
+static __constant__ u32 FP_PM2[12] = {
+    0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
+    0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+static __constant__ u32 FR_PM2[8] = {
+    0xffffffffu, 0xfffffffeu, 0xfffe5bfeu, 0x53bda402u,
+    0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
 
 // -N^{-1} mod 2^32
 constexpr u32 FP_N0 = 0xfffcfffdu;
@@ -49,10 +60,14 @@ constexpr u32 FR_N0 = 0xffffffffu;
 template <int L> struct Modulus;
 template <> struct Modulus<12> {
   static __device__ __forceinline__ u32 n(int i) { return FP_N[i]; }
+  static __device__ __forceinline__ u32 one(int i) { return FP_ONE[i]; }
+  static __device__ __forceinline__ u32 pm2(int i) { return FP_PM2[i]; }
   static constexpr u32 n0 = FP_N0;
 };
 template <> struct Modulus<8> {
   static __device__ __forceinline__ u32 n(int i) { return FR_N[i]; }
+  static __device__ __forceinline__ u32 one(int i) { return FR_ONE[i]; }
+  static __device__ __forceinline__ u32 pm2(int i) { return FR_PM2[i]; }
   static constexpr u32 n0 = FR_N0;
 };
 
@@ -720,12 +735,16 @@ __device__ __forceinline__ Elem<L> zero() {
   return r;
 }
 
-__device__ __forceinline__ fp_t fp_one() {
-  fp_t r;
+// Montgomery one (R mod N)
+template <int L>
+__device__ __forceinline__ Elem<L> one() {
+  Elem<L> r;
 #pragma unroll
-  for (int j = 0; j < 12; j++) r.w[j] = FP_ONE[j];
+  for (int j = 0; j < L; j++) r.w[j] = Modulus<L>::one(j);
   return r;
 }
+
+__device__ __forceinline__ fp_t fp_one() { return one<12>(); }
 
 // Limb-major global layout: word j of lane i at base[j * stride + i].
 template <int L>

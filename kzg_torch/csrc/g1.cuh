@@ -25,6 +25,26 @@ struct jac_t {
 
 __device__ __forceinline__ fp_t fmul(const fp_t& a, const fp_t& b) { return mont_mul<12>(a, b); }
 __device__ __forceinline__ fp_t fsqr(const fp_t& a) { return mont_sqr<12>(a); }
+
+// How the point formulas multiply (the Ops of g1_double and g1_add).
+// FieldInline, the default: every multiply and square is its own copy of
+// the carry chains (16 copies of about 640 instructions an add), more than
+// an SM's instruction caches hold, so a warp that runs adds one after
+// another waits on instruction fetch. FieldCalled: one out-of-line copy of each, shared by
+// every call site, arguments in registers; a chain of dependent adds runs
+// in well under half the time (PERF.md, K4). Same words either way.
+struct FieldInline {
+  static __device__ __forceinline__ fp_t mul(const fp_t& a, const fp_t& b) { return fmul(a, b); }
+  static __device__ __forceinline__ fp_t sqr(const fp_t& a) { return fsqr(a); }
+};
+static __device__ __noinline__ fp_t fmul_called(fp_t a, fp_t b) { return mont_mul<12>(a, b); }
+static __device__ __noinline__ fp_t fsqr_called(fp_t a) { return mont_sqr<12>(a); }
+struct FieldCalled {
+  static __device__ __forceinline__ fp_t mul(const fp_t& a, const fp_t& b) {
+    return fmul_called(a, b);
+  }
+  static __device__ __forceinline__ fp_t sqr(const fp_t& a) { return fsqr_called(a); }
+};
 __device__ __forceinline__ fp_t fadd(const fp_t& a, const fp_t& b) { return add<12>(a, b); }
 __device__ __forceinline__ fp_t fsub(const fp_t& a, const fp_t& b) { return sub<12>(a, b); }
 __device__ __forceinline__ fp_t fdbl(const fp_t& a) { return dbl<12>(a); }
@@ -56,47 +76,49 @@ __device__ __forceinline__ jac_t jsel(bool c, const jac_t& a, const jac_t& b) {
 }
 
 // dbl-2009-l (a = 0): 2M + 5S. Maps infinity to infinity.
+template <class Ops = FieldInline>
 __device__ __forceinline__ jac_t g1_double(const jac_t& p) {
-  const fp_t A = fsqr(p.x);
-  const fp_t B = fsqr(p.y);
-  const fp_t C = fsqr(B);
+  const fp_t A = Ops::sqr(p.x);
+  const fp_t B = Ops::sqr(p.y);
+  const fp_t C = Ops::sqr(B);
   const fp_t xb = fadd(p.x, B);
-  const fp_t t = fsqr(xb);
+  const fp_t t = Ops::sqr(xb);
   const fp_t D = fdbl(fsub(fsub(t, A), C));
   const fp_t E = fadd(fdbl(A), A);
-  const fp_t F = fsqr(E);
+  const fp_t F = Ops::sqr(E);
   jac_t r;
   r.x = fsub(F, fdbl(D));
   const fp_t eightC = fdbl(fdbl(fdbl(C)));
-  r.y = fsub(fmul(E, fsub(D, r.x)), eightC);
-  r.z = fdbl(fmul(p.y, p.z));
+  r.y = fsub(Ops::mul(E, fsub(D, r.x)), eightC);
+  r.z = fdbl(Ops::mul(p.y, p.z));
   return r;
 }
 
 // add-2007-bl with the exceptional lanes: 12M + 4S (Z3 as Z1 Z2 2H, as the JAX
 // package computes it; the published form's square trick makes it 11M + 5S).
+template <class Ops = FieldInline>
 __device__ __forceinline__ jac_t g1_add(const jac_t& p, const jac_t& q) {
-  const fp_t Z1Z1 = fsqr(p.z);
-  const fp_t Z2Z2 = fsqr(q.z);
-  const fp_t U1 = fmul(p.x, Z2Z2);
-  const fp_t U2 = fmul(q.x, Z1Z1);
-  const fp_t S1 = fmul(p.y, fmul(q.z, Z2Z2));
-  const fp_t S2 = fmul(q.y, fmul(p.z, Z1Z1));
+  const fp_t Z1Z1 = Ops::sqr(p.z);
+  const fp_t Z2Z2 = Ops::sqr(q.z);
+  const fp_t U1 = Ops::mul(p.x, Z2Z2);
+  const fp_t U2 = Ops::mul(q.x, Z1Z1);
+  const fp_t S1 = Ops::mul(p.y, Ops::mul(q.z, Z2Z2));
+  const fp_t S2 = Ops::mul(q.y, Ops::mul(p.z, Z1Z1));
   const fp_t H = fsub(U2, U1);
   const fp_t H2 = fdbl(H);
-  const fp_t I = fsqr(H2);
-  const fp_t J = fmul(H, I);
+  const fp_t I = Ops::sqr(H2);
+  const fp_t J = Ops::mul(H, I);
   const fp_t dS = fsub(S2, S1);
   const fp_t r = fdbl(dS);
-  const fp_t V = fmul(U1, I);
+  const fp_t V = Ops::mul(U1, I);
   jac_t out;
-  out.x = fsub(fsub(fsqr(r), J), fdbl(V));
-  out.y = fsub(fmul(r, fsub(V, out.x)), fdbl(fmul(S1, J)));
-  out.z = fmul(fmul(p.z, q.z), H2);
+  out.x = fsub(fsub(Ops::sqr(r), J), fdbl(V));
+  out.y = fsub(Ops::mul(r, fsub(V, out.x)), fdbl(Ops::mul(S1, J)));
+  out.z = Ops::mul(Ops::mul(p.z, q.z), H2);
 
   const bool same_x = fzero(H);
   const bool same_y = fzero(dS);
-  if (same_x && same_y) out = g1_double(p);
+  if (same_x && same_y) out = g1_double<Ops>(p);
   out = jsel(same_x && !same_y, jac_inf(), out);
   out = jsel(jac_is_inf(p), q, out);
   out = jsel(jac_is_inf(q), p, out);

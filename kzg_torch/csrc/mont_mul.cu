@@ -6,11 +6,12 @@
 // int32 arrays: word j of lane i at j * n + i, so a warp's loads of one word
 // are 128 contiguous bytes.
 //
-// Bound on an H100: operations. A lane moves 3 * 4L bytes and does
-// 2 L^2 + L 32x32->64 multiply-adds (two 32-bit IMADs each), about 50 IMADs
-// per byte for Fp, far above the card's ~5 IMADs per byte of HBM bandwidth.
-// The design keeps every word in registers (no shared memory, no spills at
-// L = 12) and launches enough 256-thread blocks to fill all SMs.
+// Bound on an H100: bytes. A lane moves 3 * 4L bytes (144 for Fp) and does
+// 2 L^2 + L 32x32->64 multiply-adds (two 32-bit IMADs each): 600 IMADs, about
+// 4.2 a byte for Fp (2.8 for Fr), below the card's ~5 IMADs a byte of HBM
+// bandwidth (16.7 T IMAD/s over 3.35 TB/s). The design keeps every word in
+// registers (no shared memory, no spills at L = 12) and launches enough
+// 256-thread blocks to fill all SMs.
 #include "field.cuh"
 
 namespace kzg {

@@ -45,8 +45,13 @@ SIGNATURES = {
     "kzg_g1_madd": [_P] * 8 + [_P, _I, _P],
     "kzg_scan_madd": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "kzg_scan_buckets": [_P] * 9 + [_I, _I, _I, _P],
-    "kzg_hs_scan_block": [_P] * 9 + [_I, _I, _I, _P],
-    "kzg_hs_scan_offset": [_P] * 6 + [_I, _I, _I, _P],
+    "kzg_inv_up": [_P, _P, _P, _I, _I, _I, _P],
+    "kzg_inv_top": [_P, _P, _I, _I, _P],
+    "kzg_inv_down": [_P, _P, _P, _I, _I, _I, _P],
+    "kzg_hs_scan_block": [_P] * 6 + [_I, _I, _I, _P],
+    "kzg_hs_scan_runs": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
+    "kzg_hs_scan_offsets": [_P] * 9 + [_I, _I, _I, _I, _P],
+    "kzg_hs_scan_apply": [_P] * 9 + [_I, _I, _I, _I, _I, _P],
     "kzg_gen_fold": [_P] * 6 + [_I, _P],
     "kzg_fold_entries": [_P] * 5 + [_I, _I, _P],
     "kzg_dbl_chain": [_P] * 6 + [_I, _I, _I, _I, _P],
@@ -142,6 +147,13 @@ def ptxas_usage() -> dict:
             current = _demangle(m.group(1))
             usage[current] = {"registers": None, "spill_stores": 0, "spill_loads": 0,
                               "smem": 0}
+            continue
+        # a device function's own properties (a __noinline__ helper) follow
+        # its callers' reports: they are not the kernel's
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = _demangle(m.group(1))
+            current = name if name in usage else None
             continue
         if current is None:
             continue

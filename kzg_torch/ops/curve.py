@@ -344,17 +344,15 @@ def neg(p):
 
 
 def to_affine(p):
-    """Jacobian -> affine ((x, y), inf): one Montgomery-trick inversion over
-    every lane. Infinity lanes return (0, 0)."""
+    """Jacobian -> affine ((x, y), inf): one batched inversion over every
+    lane. Infinity lanes return (0, 0): the inversion maps their Z = 0 to 0,
+    and the products with it are 0."""
     X, Y, Z = p
-    inf = is_inf(p)
-    safe = FP.select(inf, FP.one_like(Z), Z)
-    zi = FP.inv_batch(safe)
+    zi = FP.inv_batch(Z)
     zi2 = FP.square(zi)
     x = FP.mul(X, zi2)
     y = FP.mul(Y, FP.mul(zi, zi2))
-    zero = torch.zeros_like(x)
-    return (FP.select(inf, zero, x), FP.select(inf, zero, y)), inf
+    return (x, y), is_inf(p)
 
 
 def scalar_bit(k: torch.Tensor, i: int) -> torch.Tensor:

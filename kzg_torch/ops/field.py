@@ -6,10 +6,13 @@ int32 tensors of canonical Montgomery words (``ops/limbs.py``), R = 2^(32 L32)
 (2^384 for Fp, 2^256 for Fr, as in the JAX package).
 
 The multiply is kernel K1 (``csrc/mont_mul.cu``) on a CUDA tensor and its
-plain version, ``mont_mul_plain``, on a CPU tensor. The other operations
-(add, sub, neg, selects, the inversion ladders) are plain PyTorch on either
-device, as they were XLA outside Pallas in the JAX package: they widen the
-words to 16-bit limbs in int64, where a carry chain is a few shifts.
+plain version, ``mont_mul_plain``, on a CPU tensor. The batched inversion is
+one hand-written kernel too (``csrc/inv_batch.cu``, three launches) on a
+CUDA tensor, and ``Field.inv_batch_plain`` on a CPU tensor. The other
+operations (add, sub, neg, selects, the single-value ladders) are plain
+PyTorch on either device, as they were XLA outside Pallas in the JAX
+package: they widen the words to 16-bit limbs in int64, where a carry chain
+is a few shifts.
 """
 
 from __future__ import annotations
@@ -190,6 +193,12 @@ class Field:
         return self.pow_const(a, self.modulus - 2)
 
     def inv_batch(self, a):
+        """The inverse of every lane of a (L, *batch), zero lanes mapped to
+        zero: the kernel on a CUDA tensor, the plain version on a CPU tensor
+        (``inv_batch`` below)."""
+        return inv_batch(a, self)
+
+    def inv_batch_plain(self, a):
         """Montgomery-trick inversion over every lane of a: inv(a_i) =
         prefix_{i-1} * suffix_{i+1} * inv(prefix_{n-1}), two work-efficient
         product scans and ONE Fermat inversion. Zero lanes map to zero."""
@@ -254,6 +263,47 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, field: Field) -> torch.Tensor:
     _build.launch(f"mont_mul_{field.name.lower()}", "kzg_mont_mul",
                   a.data_ptr(), b.data_ptr(), out.data_ptr(), n, field.kernel_id)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K1's batched inversion
+# ---------------------------------------------------------------------------
+
+INV_BLOCK = 256  # threads a block of the inversion kernels (kInvBlock in inv_batch.cu)
+INV_RUN = 32  # lanes each thread of the first and last passes multiplies in turn
+
+
+def inv_batch(a: torch.Tensor, field: Field) -> torch.Tensor:
+    """Batched inversion wrapper: a (L, *batch) int32 canonical Montgomery
+    words -> the words of each lane's inverse, zero lanes mapped to zero.
+    CPU tensors take ``field.inv_batch_plain``; CUDA tensors launch
+    ``kzg_inv_up``, ``kzg_inv_top`` and ``kzg_inv_down`` (csrc/inv_batch.cu),
+    three launches whatever the lane count, with the scratch allocated here.
+    The inverse is unique, so both give the same words."""
+    if a.dim() < 2 or a.shape[0] != field.L:
+        raise ValueError(f"inv_batch takes ({field.L}, ...) words, got {tuple(a.shape)}")
+    if a.dtype != torch.int32:
+        raise TypeError(f"inv_batch takes int32 words, got {a.dtype}")
+    if a.numel() == 0:  # no lanes, no launch
+        return torch.empty_like(a)
+    if a.device.type == "cpu":
+        return field.inv_batch_plain(a)
+    flat = a.reshape(field.L, -1).contiguous()
+    _build.check_cuda(flat)
+    n = flat.shape[1]
+    if n >= 1 << 31:
+        raise ValueError("inv_batch takes fewer than 2^31 lanes")
+    out = torch.empty_like(flat)
+    g = -(-n // (INV_BLOCK * INV_RUN))
+    tot = torch.empty(field.L, g, dtype=torch.int32, device=a.device)
+    pre = torch.empty_like(tot)
+    name = f"inv_batch_{field.name.lower()}"
+    _build.launch(name, "kzg_inv_up", flat.data_ptr(), out.data_ptr(), tot.data_ptr(), n,
+                  INV_RUN, field.kernel_id)
+    _build.launch(name, "kzg_inv_top", tot.data_ptr(), pre.data_ptr(), g, field.kernel_id)
+    _build.launch(name, "kzg_inv_down", flat.data_ptr(), out.data_ptr(), tot.data_ptr(), n,
+                  INV_RUN, field.kernel_id)
+    return out.reshape(a.shape)
 
 
 FP = Field(hm.P, 12, "Fp", 0)  # 381-bit base field, 12 words

@@ -25,7 +25,11 @@ from . import _build
 from . import curve as cv
 from .field import FP
 
-HS_BLOCK = 256  # lanes per block of K4's first pass (kHsBlock in hs_scan.cu)
+HS_BLOCK = 256  # the widest row K4 scans in one block (kHsBlock in hs_scan.cu)
+# K4's wide scan (W > HS_BLOCK): a segment is HS_WIDE_BLOCK threads, each
+# walking HS_RUN consecutive lanes
+HS_RUN = 8
+HS_WIDE_BLOCK = 128
 
 
 # ---------------------------------------------------------------------------
@@ -166,21 +170,37 @@ def _hs_block16(p):
 
 
 def _hs_prefix16(p):
-    """Plain version of K4's inclusive prefix scan on (24, R, W) limbs."""
+    """Plain version of K4's inclusive prefix scan on (24, R, W) limbs, in
+    the kernel's grouping: one Hillis-Steele pass up to HS_BLOCK lanes;
+    wider rows in segments of HS_WIDE_BLOCK runs of HS_RUN lanes: each run's
+    own prefixes, a Hillis-Steele scan of the run totals within each segment,
+    the segment totals scanned by this same function, then each run's offset
+    (segments before, runs before) added to its prefixes. Lanes past W are
+    infinity, which every add passes through unchanged."""
     W = p[0].shape[-1]
     if W <= HS_BLOCK:
         return _hs_block16(p)
-    nb = -(-W // HS_BLOCK)
-    pad = nb * HS_BLOCK - W
-    blocks = tuple(torch.nn.functional.pad(c, (0, pad)).reshape(c.shape[:-1] + (nb, HS_BLOCK))
-                   for c in p)
-    scan = _hs_block16(blocks)
-    last = torch.full((nb,), HS_BLOCK - 1, device=p[0].device)
-    last[-1] = (W - 1) % HS_BLOCK
-    totals = tuple(c[..., torch.arange(nb, device=c.device), last] for c in scan)
-    off = _shift_right16(_hs_prefix16(totals))
-    scan = cv.add16(scan, tuple(o.unsqueeze(-1).expand_as(s) for o, s in zip(off, scan)))
-    return tuple(c.reshape(c.shape[:-2] + (nb * HS_BLOCK,))[..., :W] for c in scan)
+    run, block = HS_RUN, HS_WIDE_BLOCK
+    nseg = -(-W // (run * block))
+    lanes = tuple(torch.nn.functional.pad(c, (0, nseg * block * run - W))
+                  .reshape(c.shape[:-1] + (nseg, block, run)) for c in p)
+    loc = [tuple(c[..., 0] for c in lanes)]  # run prefixes, each (24, R, nseg, block)
+    for j in range(1, run):
+        loc.append(cv.add16(loc[-1], tuple(c[..., j] for c in lanes)))
+    scan = _hs_block16(loc[-1])
+    seg = _shift_right16(_hs_prefix16(tuple(c[..., -1] for c in scan)))
+    seg = tuple(c.unsqueeze(-1).expand_as(r) for c, r in zip(seg, scan))
+    prev = _shift_right16(scan)  # the runs before, within the segment
+    # each run's offset as the kernel forms it: the runs before alone in the
+    # first segment, the segments before alone for a segment's first run (an
+    # add would turn an infinity with other words into (0, 0, 0)); the first
+    # run of the row keeps its own prefixes
+    seg0 = (torch.arange(nseg, device=p[0].device) == 0).unsqueeze(-1)
+    run0 = torch.arange(block, device=p[0].device) == 0
+    off = cv.select(seg0, prev, cv.select(run0, seg, cv.add16(seg, prev)))
+    out = [cv.select(seg0 & run0, lp, cv.add16(off, lp)) for lp in loc]
+    return tuple(torch.stack([o[k] for o in out], dim=-1)
+                 .reshape(p[0].shape[:-1] + (nseg * block * run,))[..., :W] for k in range(3))
 
 
 def hs_scan_points_plain(x, y, z, reverse: bool = False):
@@ -197,15 +217,26 @@ def hs_scan_points_plain(x, y, z, reverse: bool = False):
 def _hs_scan_cuda(x, y, z, reverse: bool):
     _build.check_cuda(x, y, z)
     _, R, W = x.shape
-    nb = -(-W // HS_BLOCK)
     out = tuple(torch.empty_like(c) for c in (x, y, z))
-    tot = tuple(torch.empty(FP.L, R, nb, dtype=torch.int32, device=x.device) for _ in range(3))
-    _build.launch("hs_scan_points", "kzg_hs_scan_block",
-                  *(c.data_ptr() for c in (x, y, z) + out + tot), R, W, int(reverse))
-    if nb > 1:
-        off = tuple(c.contiguous() for c in hs_scan_points(*tot, exclusive=True))
-        _build.launch("hs_scan_points", "kzg_hs_scan_offset",
-                      *(c.data_ptr() for c in out + off), R, W, int(reverse))
+    if W <= HS_BLOCK:
+        _build.launch("hs_scan_points", "kzg_hs_scan_block",
+                      *(c.data_ptr() for c in (x, y, z) + out), R, W, int(reverse))
+        return out
+    run, block = HS_RUN, HS_WIDE_BLOCK
+    nseg = -(-W // (run * block))
+    loc = tuple(torch.empty_like(c) for c in (x, y, z))
+    runs = tuple(torch.empty(FP.L, R, nseg * block, dtype=torch.int32, device=x.device)
+                 for _ in range(3))
+    segs = tuple(torch.empty(FP.L, R, nseg, dtype=torch.int32, device=x.device) for _ in range(3))
+    _build.launch("hs_scan_points", "kzg_hs_scan_runs",
+                  *(c.data_ptr() for c in (x, y, z) + loc + runs + segs), R, W, run, block,
+                  int(reverse))
+    segs = _hs_scan_cuda(*segs, reverse=False)
+    offs = tuple(torch.empty_like(c) for c in runs)
+    _build.launch("hs_scan_points", "kzg_hs_scan_offsets",
+                  *(c.data_ptr() for c in runs + segs + offs), R, W, run, block)
+    _build.launch("hs_scan_points", "kzg_hs_scan_apply",
+                  *(c.data_ptr() for c in loc + out + offs), R, W, run, block, int(reverse))
     return out
 
 
@@ -213,11 +244,14 @@ def hs_scan_points(x, y, z, reverse: bool = False, exclusive: bool = False):
     """K4 wrapper: prefix (or, with reverse, suffix) sums of Jacobian points
     along the LAST axis of (12, *batch, W) coordinates; exclusive shifts the
     result one lane (data movement, here in the wrapper). CPU tensors take the
-    plain version, CUDA tensors launch ``kzg_hs_scan_block`` (and, for
-    W > 256, scan the block totals and launch ``kzg_hs_scan_offset``).
+    plain version, CUDA tensors launch ``kzg_hs_scan_block`` (W <= 256) or,
+    for wider rows, ``kzg_hs_scan_runs``, a scan of the segment totals,
+    ``kzg_hs_scan_offsets`` and ``kzg_hs_scan_apply``: four launches up to
+    256 segments (W <= 262,144).
 
     For W <= 256 the result equals kzg_tpu's _hs_scan_points bit for bit;
-    wider rows group the adds by block, equal as group elements."""
+    wider rows group the adds by run and segment (kernel and plain version
+    alike), equal to it as group elements."""
     shape = x.shape
     W = shape[-1]
     R = x.numel() // (FP.L * W)

@@ -110,6 +110,7 @@ def test_madd_fast_flags_exactly_the_doubling_lanes(lanes):
 def test_to_affine_and_device_round_trip(lanes):
     (x, y), inf = cv.to_affine(lanes["p"])
     assert inf.tolist() == [pt is None for pt in lanes["p_host"]]
+    assert not bool(x[:, inf].any()) and not bool(y[:, inf].any())  # (0, 0)
     got = cv.g1_from_device((x, y, FP.select(inf, torch.zeros_like(x), FP.one_like(x))))
     assert got == lanes["p_host"]
     assert cv.g1_from_device(cv.g1_to_device(lanes["p_host"], "cpu")) == lanes["p_host"]

@@ -43,6 +43,9 @@ def test_constants_match_hostmath():
     assert words("FP_N") == hm.P
     assert words("FR_N") == hm.R
     assert words("FP_ONE") == (1 << 384) % hm.P
+    assert words("FR_ONE") == (1 << 256) % hm.R
+    assert words("FP_PM2") == hm.P - 2
+    assert words("FR_PM2") == hm.R - 2
     assert scalar("FP_N0") == (-pow(hm.P, -1, 1 << 32)) % (1 << 32)
     assert scalar("FR_N0") == (-pow(hm.R, -1, 1 << 32)) % (1 << 32)
     assert hm.P == FP.modulus and hm.R == FR.modulus
@@ -93,6 +96,38 @@ def test_inv_batch_keeps_shape_and_zero_lanes():
     assert inv.shape == a.shape
     want = [pow(x, hm.P - 2, hm.P) for x in xs] * 2
     assert FP.from_words_many(inv) == want
+
+
+@pytest.mark.parametrize("name", ["Fp", "Fr"])
+def test_inv_batch_plain_bit_identical_to_kzg_tpu(name):
+    """inv_batch_plain on 64 lanes (zeros at both ends and inside, 1, N - 1,
+    R mod N) against the JAX package's Field.inv_batch on the CPU, word for
+    word; the wrapper takes the plain version on a CPU tensor."""
+    from kzg_tpu.ops import field as jfield
+
+    F = FIELDS[name]
+    JF = {"Fp": jfield.FP, "Fr": jfield.FR}[name]
+    xs = [0] + _values(F, 57, 10)[:57] + [1, F.modulus - 1, F.R_int % F.modulus, 0, 0, 0]
+    xs[30] = 0
+    a = F.tensor(xs, "cpu")
+    got = F.inv_batch_plain(a)
+    want = np.asarray(JF.inv_batch(JF.many_to_limbs(xs)))
+    assert np.array_equal(convert.to_jax_limbs(got), want)
+    assert torch.equal(F.inv_batch(a), got)
+    assert torch.equal(fld.inv_batch(a, F), got)
+
+
+def test_inv_batch_wrapper_checks_operands():
+    a = FP.tensor([3, 0, 5], "cpu")
+    with pytest.raises(ValueError):
+        fld.inv_batch(a[:8], FP)  # words of the other field
+    with pytest.raises(ValueError):
+        fld.inv_batch(a[:, 0], FP)  # no lane axis
+    with pytest.raises(TypeError):
+        fld.inv_batch(a.to(torch.int64), FP)
+    assert FP.from_words_many(fld.inv_batch(a, FP)) == [pow(3, hm.P - 2, hm.P), 0,
+                                                       pow(5, hm.P - 2, hm.P)]
+    assert fld.inv_batch(a[:, :0], FP).shape == (FP.L, 0)
 
 
 def test_word_limb_layouts_round_trip():

@@ -73,13 +73,36 @@ def test_scan_kernel_matches_plain(cuda, fast):
     assert _same(got, want) and bool(flag) == bool(want_flag) == fast
 
 
-@pytest.mark.parametrize("W", [32, 700])
+@pytest.mark.parametrize("W", [32, 257, 700, 2641])
 def test_hs_scan_kernel_matches_plain(cuda, W):
+    """One block (W = 32), one segment with a partial run (257), and several
+    segments (700; 2641 ends in a partial run of a partial segment), with
+    infinity lanes whose x and y are not zero."""
     pts = tuple(_rand(FP, 2 * W, s).to(cuda).view(FP.L, 2, W) for s in (11, 12, 13))
     pts[2][:, :, ::5] = 0
     for reverse in (False, True):
         got = scans.hs_scan_points(*pts, reverse=reverse)
         assert _same(got, scans.hs_scan_points_plain(*pts, reverse=reverse))
+
+
+@pytest.mark.parametrize("name", ["Fp", "Fr"])
+@pytest.mark.parametrize("n", [1, 2, 300, 8192 + 300 + 7])
+def test_inv_batch_kernel_matches_plain(cuda, name, n):
+    """The inversion kernel against inv_batch_plain: zero lanes at the ends
+    and at run and block boundaries, 1, N - 1 and R mod N; every non-zero
+    lane times its inverse is Montgomery one."""
+    F = {"Fp": FP, "Fr": FR}[name]
+    a = _rand(F, n, 23).to(cuda)
+    a[:, 0] = 0
+    if n >= 300:
+        a[:, [31, 32, 255, 256, n - 1]] = 0
+        a[:, 1:4] = F.tensor([1, F.modulus - 1, F.R_int % F.modulus], cuda, mont=False)
+    got = F.inv_batch(a)
+    assert _same(got, F.inv_batch_plain(a))
+    nz = ~F.is_zero(a)
+    prod = fld.mont_mul_plain(a, got, F)
+    assert bool((prod[:, nz] == F.const("ONE", cuda)).all())
+    assert _same(F.inv_batch(torch.zeros_like(a)), torch.zeros_like(a))
 
 
 def test_fold_kernels_match_plain(cuda):

@@ -87,16 +87,10 @@ def test_hs_scan_bit_identical_to_kzg_tpu():
         assert torch.equal(g, convert.from_jax_limbs(np.asarray(w)))
 
 
-@pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("exclusive", [False, True])
-@pytest.mark.parametrize("W", [5, 32, 300])
-def test_hs_scan_modes_match_host_sums(reverse, exclusive, W):
-    """Every mode, within one block and across blocks (W = 300 > 256: block
-    scans, then the totals' scan and the offset adds), as group elements."""
-    _, base = _points(8, 23)
-    pts = [base[(3 * i) % 8] if i % 9 else None for i in range(W)]
-    jac = tuple(c.view(FP.L, 1, W) for c in cv.g1_to_device(pts, "cpu"))
-    got = _affine(scans.hs_scan_points(*jac, reverse=reverse, exclusive=exclusive))
+def _host_scan(pts, reverse, exclusive):
+    """The host's prefix (or, reversed, suffix) sums of pts, inclusive or
+    exclusive."""
+    W = len(pts)
     order = range(W - 1, -1, -1) if reverse else range(W)
     want = [None] * W
     acc = None
@@ -106,7 +100,41 @@ def test_hs_scan_modes_match_host_sums(reverse, exclusive, W):
         want[k] = acc
         if exclusive:
             acc = hm.g1_add(acc, pts[k])
-    assert got == want
+    return want
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("exclusive", [False, True])
+@pytest.mark.parametrize("W", [5, 32, 300, 257, 1101])
+def test_hs_scan_modes_match_host_sums(reverse, exclusive, W):
+    """Every mode, within one block (W <= 256) and in the wide grouping: W =
+    257 and 300 are one segment of runs of HS_RUN lanes (the last run
+    partial); W = 1101 is two segments, the second one partial and ending in
+    a partial run, whose totals are scanned in a second level. As group
+    elements."""
+    assert scans.HS_RUN * scans.HS_WIDE_BLOCK < 1101 < 2 * scans.HS_RUN * scans.HS_WIDE_BLOCK
+    _, base = _points(8, 23)
+    pts = [base[(3 * i) % 8] if i % 9 else None for i in range(W)]
+    jac = tuple(c.view(FP.L, 1, W) for c in cv.g1_to_device(pts, "cpu"))
+    got = _affine(scans.hs_scan_points(*jac, reverse=reverse, exclusive=exclusive))
+    assert got == _host_scan(pts, reverse, exclusive)
+
+
+@pytest.mark.parametrize("run,block", [(1, 2), (3, 5)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_hs_scan_wide_grouping_matches_host_sums(monkeypatch, run, block, reverse):
+    """The wide grouping at other run and block sizes, over two rows of W =
+    600: runs of 1 in segments of 2 make 300 segments, whose totals take the
+    wide grouping again (a third level); runs of 3 in segments of 5 leave a
+    partial run in a partial segment."""
+    monkeypatch.setattr(scans, "HS_RUN", run)
+    monkeypatch.setattr(scans, "HS_WIDE_BLOCK", block)
+    _, base = _points(8, 24)
+    W = 600
+    pts = [base[(5 * i) % 8] if i % 7 else None for i in range(2 * W)]
+    jac = tuple(c.view(FP.L, 2, W) for c in cv.g1_to_device(pts, "cpu"))
+    got = _affine(scans.hs_scan_points(*jac, reverse=reverse))
+    assert got == _host_scan(pts[:W], reverse, False) + _host_scan(pts[W:], reverse, False)
 
 
 def test_signed_digits_recompose_and_match_kzg_tpu():
