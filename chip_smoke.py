@@ -23,10 +23,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    and block boundaries and the values 1, p - 1 and R mod p, where every
    non-zero lane times its inverse must be Montgomery one; K4 at W = 32, 257,
    a partial run in a partial segment over R > 1 rows, and the commit's
-   131,072, in all four modes); the expected result is bit-identical output.
+   131,072, in all four modes; the proof's evaluation and division at n = 1,
+   2, a run's length minus and plus one, a tile, a tile and one and two, and
+   128 tiles and five, each at x = 0, 1, r - 1 and a seeded point, against
+   both plain versions, the division of a polynomial with a known root
+   equal to its other factor, and a non-root raising ProtocolError); the
+   expected result is bit-identical output.
 4. paths, each driven through the entry points with the launch counts set to
-   0 just before and read just after, and every call of a kernel wrapper
-   logged with its shapes:
+   0 just before and read just after, every call of a kernel wrapper logged
+   with its shapes, and the host time spent in Python's garbage collector
+   during the run added up (gc.callbacks; the set-up's objects, among them
+   the oracles' 2^20-element lists, are frozen out of it first):
    - ceremony: genmul.chunked_srs_g1(s, 2^20, chunk=2^16), the G1
      powers-of-tau (generator tables, then the window fold per chunk). Its
      SRS must equal, on every one of the 2^20 lanes, the one the port's
@@ -42,7 +49,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    - proof: Polynomial.evaluate at a seeded x and Evaluation.generate_proof
      (sub, divide_by_root, the quotient's commit against the same tables).
      y must equal the host's Horner value P(x), and the proof
-     ((P(s) - y) / (s - x) mod r) G1.
+     ((P(s) - y) / (s - x) mod r) G1, in the first run and in 3 warm runs.
+     The evaluation and the division must run their kernels, and the path
+     at most MAX_FR_MULS_PROOF Fr multiplies.
    - batched: the commit below FIXED_BASE_THRESHOLD (n = 8192), which runs
      the batched double-and-add MSM.
    Each commit must equal the host oracle (sum a_i s^i mod r) G1, and each
@@ -84,13 +93,21 @@ totals and bucket slots; the windowed chain over n lanes needs
 144 n a window out. The batched inversion of n lanes needs 3 (n - 1)
 multiplies (Montgomery's trick) and one Fermat ladder x^(N - 2) in fixed
 4-bit windows (380 squares and 105 multiplies for Fp, 252 and 73 for Fr,
-each Fr square a multiply), and moves 2 * 4L n bytes.
+each Fr square a multiply), and moves 2 * 4L n bytes. The proof's
+evaluation of n coefficients needs n - 1 Fr multiplies (Horner) and reads
+32 n bytes: at n = 2^20, (2^20 - 1) * 272 / 16.7e12 s = 0.0171 ms of
+operations against 2^25 / 3.35e12 s = 0.0100 ms of bytes, so 0.0171 ms. Its
+division needs at least n - 2 (the recurrence's n - 1 steps, the first a
+copy), reads 32 n bytes and writes 32 (n - 1): at 2^20, 0.0171 ms of
+operations against (2^26 - 32) / 3.35e12 s = 0.0200 ms of bytes, so
+0.0200 ms.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import os
@@ -116,6 +133,7 @@ G1_DBL_OPS = 2 * FP_MUL_OPS + 5 * FP_SQR_OPS
 FP_BYTES = 48
 MAX_FP_MULS_TABLES = 10  # Fp multiply launches the table build may make
 MAX_FP_MULS_CEREMONY = 100  # and the whole ceremony
+MAX_FR_MULS_PROOF = 4  # Fr multiply launches the proof may make
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -133,6 +151,8 @@ KERNELS = {
     "fold_entries": ("kzg_torch/csrc/gen_fold.cu", "kzg_tpu/ops/pallas_msm.py:396"),
     "dbl_chain": ("kzg_torch/csrc/dbl_chain.cu", "kzg_tpu/ops/pallas_msm.py:336"),
     "dbl_windows": ("kzg_torch/csrc/dbl_chain.cu", "kzg_tpu/ops/pallas_msm.py:336"),
+    "fr_evaluate": ("kzg_torch/csrc/fr_poly.cu", "kzg_tpu/ops/poly.py:56"),
+    "fr_divide": ("kzg_torch/csrc/fr_poly.cu", "kzg_tpu/ops/poly.py:69"),
 }
 # kernel -> its CUDA functions in the -Xptxas -v report
 DEVICE_FUNCTIONS = {
@@ -147,6 +167,8 @@ DEVICE_FUNCTIONS = {
                        "hs_apply_kernel"],
     "gen_fold": ["gen_fold_kernel"], "fold_entries": ["fold_entries_kernel"],
     "dbl_chain": ["dbl_chain_kernel"], "dbl_windows": ["dbl_chain_kernel"],
+    "fr_evaluate": ["fr_eval_kernel"],
+    "fr_divide": ["fr_eval_kernel", "fr_div_top_kernel", "fr_div_down_kernel"],
 }
 SRS_CHUNK = 1 << 16  # the chunk bench.py passes to the JAX package's ceremony
 DBL_STEPS = 16
@@ -159,7 +181,8 @@ PATH_KERNELS = {
     CEREMONY: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "g1_madd", "gen_fold"},
     MAIN: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "dbl_windows", "g1_double", "g1_add",
            "scan_buckets", "hs_scan_points"},
-    PROOF: {"mont_mul_fr", "g1_double", "g1_add", "scan_buckets", "hs_scan_points"},
+    PROOF: {"mont_mul_fr", "g1_double", "g1_add", "scan_buckets", "hs_scan_points",
+            "fr_evaluate", "fr_divide"},
     BATCHED: {"mont_mul_fr", "g1_double", "g1_add", "g1_madd"},
 }
 
@@ -217,6 +240,17 @@ class Ctx:
         self.torch = torch
         self.device = device
         self.gen = torch.Generator(device=device).manual_seed(SEED)
+        self.gc_ms = 0.0  # host time inside the garbage collector (gc_callback)
+        self.path_gc_ms = {}
+        self._gc_start = None
+
+    def gc_callback(self, phase, info):
+        """gc.callbacks hook: adds up the time of every collection."""
+        if phase == "start":
+            self._gc_start = time.perf_counter()
+        elif self._gc_start is not None:
+            self.gc_ms += (time.perf_counter() - self._gc_start) * 1e3
+            self._gc_start = None
 
     def sync(self):
         if self.device.type == "cuda":
@@ -523,6 +557,55 @@ def phase_kernels(ctx):
                       scans.hs_scan_points(*pts, reverse=reverse, exclusive=exclusive),
                       hs_plain(ctx, pts, reverse, exclusive))
 
+    phase_poly_kernels(ctx)
+
+
+def phase_poly_kernels(ctx):
+    """K1e and K1d against both plain versions (the pair-up recursion and
+    the kernels' decomposition) at n = 1, 2, a run's length minus and plus
+    one, a tile, a tile and one and two, and 128 tiles and five (the top
+    pass takes two tiles a thread), each at x = 0, 1, r - 1 and a seeded
+    point; then the division through Polynomial.divide_by_root: a
+    polynomial with a known root gives its other factor, a non-root raises
+    ProtocolError."""
+    from kzg_torch import Polynomial, ProtocolError, Scalar
+    from kzg_torch.ops import poly as polyops
+    from kzg_torch.ops.field import FR
+    from kzg_torch.utils import hostmath as hm
+
+    rnd = random.Random(SEED + 1)
+    tile = polyops.POLY_BLOCK * polyops.POLY_RUN
+    points = [FR.tensor([x], ctx.device)[:, 0] for x in (0, 1, hm.R - 1, rnd.randrange(hm.R))]
+    for n in (1, 2, polyops.POLY_RUN - 1, polyops.POLY_RUN + 1, tile, tile + 1, tile + 2,
+              polyops.POLY_BLOCK * tile + 5):
+        c = ctx.rand_field(FR, n)
+        got = tuple(polyops.evaluate(c, x) for x in points)
+        check(ctx, f"fr_evaluate (n={n}, x = 0 / 1 / r - 1 / seeded)", got,
+              tuple(polyops.evaluate_plain(c, x) for x in points))
+        check(ctx, f"fr_evaluate against the runs (n={n})", got,
+              tuple(polyops.evaluate_runs_plain(c, x) for x in points))
+        if n < 2:
+            continue
+        got = tuple(polyops.synthetic_divide(c, x) for x in points)
+        check(ctx, f"fr_divide (n={n}, root = 0 / 1 / r - 1 / seeded)", got,
+              tuple(polyops.synthetic_divide_plain(c, x) for x in points))
+        check(ctx, f"fr_divide against the runs (n={n})", got,
+              tuple(polyops.synthetic_divide_runs_plain(c, x) for x in points))
+    # P = (X - root) Q: the division gives Q; at another point it raises
+    root = rnd.randrange(hm.R)
+    q = [rnd.randrange(hm.R) for _ in range(tile + 3)]
+    p = [(a - root * b) % hm.R for a, b in zip([0] + q, q + [0])]
+    poly = Polynomial.from_ints(p, device=ctx.device)
+    if poly.divide_by_root(Scalar(root)).coefficient_ints() != q:
+        raise AssertionError("divide_by_root at a root differs from the other factor")
+    try:
+        poly.divide_by_root(Scalar(root + 1))
+    except ProtocolError:
+        print(f"  divide_by_root (n={len(p)}): the other factor at the root, ProtocolError at "
+              f"a non-root", flush=True)
+    else:
+        raise AssertionError("divide_by_root at a non-root did not raise ProtocolError")
+
 
 # ---------------------------------------------------------------------------
 # Phase 4: the paths, with every wrapper call logged
@@ -535,6 +618,7 @@ def logging_calls():
     spec (kernel, shape, mode): what the replay needs to rebuild inputs of the
     same shapes. The wrappers are swapped in their modules and put back."""
     from kzg_torch.ops import curve as cv, field as fld, genmul, scans
+    from kzg_torch.ops import poly as polyops
 
     calls = collections.Counter()
     depth = [0]
@@ -555,6 +639,8 @@ def logging_calls():
         (cv, "dbl_chain", lambda p, steps: ("dbl_chain", tuple(p[0].shape), steps)),
         (cv, "dbl_windows", lambda p, steps, windows: (
             "dbl_windows", tuple(p[0].shape), steps, windows)),
+        (polyops, "evaluate", lambda coeffs, x: ("fr_evaluate", tuple(coeffs.shape))),
+        (polyops, "synthetic_divide", lambda coeffs, root: ("fr_divide", tuple(coeffs.shape))),
     ]
     originals = []
 
@@ -585,10 +671,13 @@ def drive(ctx, label, fn):
     from kzg_torch.ops import _build
 
     _build.reset_launches()
+    gc_before = ctx.gc_ms
     with logging_calls() as calls:
         ms, out = ctx.time_once(fn)
     launches = dict(_build.LAUNCHES)
-    print(f"  {label}: {ms:.1f} ms; launches {launches}", flush=True)
+    ctx.path_gc_ms[label] = ctx.gc_ms - gc_before
+    print(f"  {label}: {ms:.1f} ms, of which {ctx.path_gc_ms[label]:.1f} ms in the garbage "
+          f"collector; launches {launches}", flush=True)
     missing = sorted(k for k in PATH_KERNELS[label] if launches.get(k, 0) == 0)
     if missing:
         raise AssertionError(f"{label}: kernels not launched: {missing}")
@@ -629,6 +718,12 @@ def phase_paths(ctx):
         raise AssertionError("the ladder's SRS holds the point at infinity")
     print(f"  set-up, ladder SRS 2^{LOG_N} points: ladder {t_srs:.1f} ms, to_affine "
           f"{t_aff:.1f} ms", flush=True)
+    # the set-up's objects (among them the oracles' 2^20-element lists) live
+    # to the end: freeze them out of the garbage collector, as
+    # tests/conftest.py freezes its heap, so that no path pays a collection
+    # over them; each path's own collector time is still reported
+    gc.collect()
+    gc.freeze()
 
     # ceremony path: the generator tables and the window fold, chunk by chunk
     if genmul.tables_built(ctx.device):
@@ -705,6 +800,9 @@ def phase_paths(ctx):
     t_proof, (ev, proof), proof_launches, proof_calls = drive(ctx, PROOF, proof_path)
     if proof_launches.get("scan_madd"):
         raise AssertionError("the proof launched the streaming scan")
+    if proof_launches.get("mont_mul_fr", 0) > MAX_FR_MULS_PROOF:
+        raise AssertionError(f"the proof made {proof_launches['mont_mul_fr']} Fr multiply "
+                             f"launches (at most {MAX_FR_MULS_PROOF})")
     y = 0
     for co in reversed(coeffs):
         y = (y * x_eval + co) % hm.R
@@ -713,7 +811,15 @@ def phase_paths(ctx):
     want = (p_at_s - y) * pow(secret - x_eval, -1, hm.R) % hm.R
     if proof.affine() != hm.g1_mul(hm.G1_GEN, want):
         raise AssertionError("the proof differs from the host oracle ((P(s) - y) / (s - x)) G1")
-    print(f"  proof 2^{LOG_N}: {t_proof:.1f} ms; y equals the host's P(x) and the proof "
+    proof_times = []
+    for _ in range(3):
+        dt, (ev2, proof2) = ctx.time_once(proof_path)
+        proof_times.append(dt)
+        if ev2.result.to_int() != y or proof2 != proof:
+            raise AssertionError("a warm proof differs from the first")
+    proof_times.sort()
+    print(f"  proof 2^{LOG_N}: {t_proof:.1f} ms first, median of 3 warm runs "
+          f"{proof_times[1]:.1f} ms ({proof_times}); y equals the host's P(x) and the proof "
           f"((P(s) - y) / (s - x) mod r) G1", flush=True)
     stages = phase_stages(ctx, secret, poly, x, srs)
 
@@ -737,7 +843,8 @@ def phase_paths(ctx):
                    "tables_launches": dict(tab_launches),
                    "first_commit_ms": t_path - t_tab, "commit_ms": med, "commit_runs_ms": times,
                    "peak_gib_tables_and_first_commit": peak_path, "peak_gib_warm_commits": peak_commit,
-                   "first_proof_ms": t_proof, "stages": stages,
+                   "first_proof_ms": t_proof, "proof_ms": proof_times[1],
+                   "proof_runs_ms": proof_times, "stages": stages,
                    "batched_first_commit_ms": t_small, "batched_commit_ms": small_times[1]
                    }, lambda: poly.commit(srs)
 
@@ -945,6 +1052,17 @@ def replay_case(ctx, spec):
         return (lambda: genmul.fold_entries(xs, ys),
                 lambda: genmul.fold_entries_plain(xs, ys),
                 2 * FP_BYTES * W * n + 3 * FP_BYTES * n, n_ops)
+    if name in ("fr_evaluate", "fr_divide"):
+        from kzg_torch.ops import poly as polyops
+
+        n = shape[1]
+        c, x = ctx.rand_field(FR, n), ctx.rand_field(FR, 1)[:, 0]
+        if name == "fr_evaluate":
+            return (lambda: polyops.evaluate(c, x), lambda: polyops.evaluate_plain(c, x),
+                    4 * FR.L * n, FR_MUL_OPS * (n - 1))
+        return (lambda: polyops.synthetic_divide(c, x),
+                lambda: polyops.synthetic_divide_plain(c, x),
+                4 * FR.L * (2 * n - 1), FR_MUL_OPS * (n - 2))
     if name == "dbl_chain":
         steps = spec[2]
         n = math.prod(shape[1:])
@@ -1111,6 +1229,7 @@ def main() -> int:
         return fail(f"no -Xptxas -v report for {missing}")
 
     ctx = Ctx(torch, device)
+    gc.callbacks.append(ctx.gc_callback)
     print("== kernels, exceptional cases", flush=True)
     phase_kernels(ctx)
     print("== paths", flush=True)
@@ -1148,6 +1267,7 @@ def main() -> int:
                                for f in DEVICE_FUNCTIONS[name]),
             "launches_by_path": {lb: paths[lb][0].get(name, 0) for lb in paths},
         })
+    times["gc_ms_by_path"] = ctx.path_gc_ms
     print(json.dumps({"slice_ms": times, "card": card,
                       "paths": {lb: {k: {f: v for f, v in t.items() if f != "err"}
                                      for k, t in tot.items()}

@@ -55,6 +55,9 @@ SIGNATURES = {
     "kzg_gen_fold": [_P] * 6 + [_I, _P],
     "kzg_fold_entries": [_P] * 5 + [_I, _I, _P],
     "kzg_dbl_chain": [_P] * 6 + [_I, _I, _I, _I, _P],
+    "kzg_fr_eval": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "kzg_fr_div_top": [_P, _I, _P, _P, _P],
+    "kzg_fr_div_down": [_P, _I, _P, _P, _I, _P, _P, _P],
 }
 
 _lib = None

@@ -112,7 +112,7 @@ class Polynomial:
     # -- algebra ----------------------------------------------------------------------
 
     def evaluate(self, x: Scalar) -> "Evaluation":
-        """P(x): powers, one batched multiply, a tree sum."""
+        """P(x) (``ops.poly.evaluate``: kernel K1e on a CUDA tensor)."""
         y = polyops.evaluate(self._coeffs, x.mont(self.device))
         return Evaluation(point=x, result=Scalar(FR.from_words_many(y.reshape(FR.L, 1))[0]))
 

@@ -1,9 +1,12 @@
 """Trusted-setup artifacts and the device-resident SRS, as in
 ``kzg_tpu/trusted_setup.py`` (SetupArtifact, DeviceSRS).
 
-In this slice of the port a SetupArtifact's G2 point is kept as its 96
-compressed bytes, unchecked and undecoded: commit does not use it, and the
-G2 group (Fp2) is a later slice. The ceremony (generate_setup) is too.
+A SetupArtifact's G2 point is decoded and checked on the host as the JAX
+package's ``G2Point.from_json`` does (flags, field range, curve, subgroup;
+``hostmath.g2_decompress``) and kept as its 96 compressed bytes, which
+``to_json`` writes back unchanged: commit does not use it, and the G2 group
+on the device is a later slice of the port. The ceremony (generate_setup) is
+too.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from .curves import G1Point
 from .errors import SerializationError
 from .ops import curve as cv
 from .ops import msm as msmops
+from .utils import hostmath as hm
 from .utils.device import resolve_device
 
 
@@ -24,13 +28,14 @@ class SetupArtifact:
     """{g1: s^k G1, g2: s^k G2} (src/trusted_setup.rs:31-35)."""
 
     g1: G1Point
-    g2: bytes  # compressed G2 point, 96 bytes
+    g2: bytes  # compressed G2 point, 96 bytes, checked by from_json
 
     def to_json(self) -> dict:
         return {"g1": self.g1.to_json(), "g2": list(self.g2)}
 
     @classmethod
     def from_json(cls, data: dict) -> "SetupArtifact":
+        g1 = G1Point.from_json(data["g1"])
         g2 = data["g2"]
         if not isinstance(g2, list) or len(g2) != 96:
             raise SerializationError(
@@ -38,9 +43,10 @@ class SetupArtifact:
             )
         try:
             g2_bytes = bytes(g2)
+            hm.g2_decompress(g2_bytes)
         except (TypeError, ValueError) as e:
             raise SerializationError(str(e)) from e
-        return cls(g1=G1Point.from_json(data["g1"]), g2=g2_bytes)
+        return cls(g1=g1, g2=g2_bytes)
 
 
 class DeviceSRS:

@@ -14,6 +14,7 @@ import torch
 from kzg_torch.ops import curve as cv
 from kzg_torch.ops import field as fld
 from kzg_torch.ops import genmul, scans
+from kzg_torch.ops import poly
 from kzg_torch.ops.field import FP, FR
 from kzg_torch.utils import hostmath as hm
 
@@ -167,3 +168,18 @@ def test_scan_buckets_kernel_matches_plain(cuda):
 def test_dbl_windows_kernel_matches_plain(cuda, steps, windows):
     p = (_rand(FP, 200, 21).to(cuda), _rand(FP, 200, 22).to(cuda))
     assert _same(cv.dbl_windows(p, steps, windows), cv.dbl_windows_plain(p, steps, windows))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 9, 16, 17, 131, 1024, 1025, 128 * 1024 + 5])
+def test_fr_poly_kernels_match_plain(cuda, n):
+    """K1e and K1d against their plain versions, bit for bit (max word error
+    0), at x = 0, 1, r - 1 and a seeded point: the CPU tests' sizes, a run
+    and one (9), a tile (1024) and a tile and one, and 128 tiles and five
+    (above 2^16: the top pass takes two tiles a thread)."""
+    c = _rand(FR, n, 25).to(cuda)
+    seeded = int(np.random.default_rng(26).integers(1, 1 << 62))
+    for x in (0, 1, hm.R - 1, seeded):
+        xw = FR.tensor([x], cuda)[:, 0]
+        assert _same(poly.evaluate(c, xw), poly.evaluate_plain(c, xw))
+        if n >= 2:
+            assert _same(poly.synthetic_divide(c, xw), poly.synthetic_divide_plain(c, xw))

@@ -1,7 +1,10 @@
 """kzg_torch polynomial layer on the CPU: ops.poly against kzg_tpu.ops.poly
-(XLA on the CPU) at n = 16, Polynomial.evaluate / sub / divide_by_root with
-the reference's edge cases, and the opening proof against the golden
-evaluation.json bytes. Tolerance: exact equality (integer arithmetic).
+(XLA on the CPU) at n = 16, the runs-plain versions (the decomposition of
+the evaluation and division kernels, at a run and a block of 4) against it
+at the decomposition's boundaries, Polynomial.evaluate / sub /
+divide_by_root with the reference's edge cases, and the opening proof
+against the golden evaluation.json bytes. Tolerance: exact equality, max
+word error 0 (integer arithmetic).
 
 The JAX functions run eagerly: ``powers`` as it is, ``evaluate`` and
 ``synthetic_divide`` through ``__wrapped__`` (the body their jit compiles),
@@ -93,6 +96,45 @@ def test_synthetic_divide_bit_identical_to_kzg_tpu(inputs):
         want[i] = acc
         acc = (coeffs[i] + root * acc) % hm.R
     assert FR.from_words_many(q) == want
+
+
+RUN = BLOCK = 4  # the runs-plain versions' run and block in these tests
+
+
+# 1, 2, 3, a run, a run and one, a tile (run * block), a tile and one, and
+# past block tiles, where the top pass takes three tiles a thread
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 16, 17, 131])
+def test_runs_plain_bit_identical_to_kzg_tpu(n):
+    """evaluate_runs_plain and synthetic_divide_runs_plain at RUN = BLOCK = 4,
+    and the wrappers (the pair-up plain versions on the CPU), equal kzg_tpu's
+    evaluate and synthetic_divide at x or root = 0, 1, r - 1 and a seeded
+    point."""
+    from kzg_tpu.ops import poly as jpoly
+
+    c = FR.tensor(_ints(n, 30 + n), "cpu")
+    for x in (0, 1, hm.R - 1, _ints(1, 40 + n)[0]):
+        xw = FR.tensor([x], "cpu")[:, 0]
+        want = _from_jax(jpoly.evaluate.__wrapped__(_jax(c), _jax(xw), n))
+        assert torch.equal(poly.evaluate_runs_plain(c, xw, RUN, BLOCK), want)
+        assert torch.equal(poly.evaluate(c, xw), want)
+        if n < 2:
+            continue
+        jq, jrebuilt = jpoly.synthetic_divide.__wrapped__(_jax(c), _jax(xw), n)
+        for q, rebuilt in (poly.synthetic_divide_runs_plain(c, xw, RUN, BLOCK),
+                           poly.synthetic_divide(c, xw)):
+            assert torch.equal(q, _from_jax(jq))
+            assert torch.equal(rebuilt, _from_jax(jrebuilt))
+
+
+def test_wrappers_check_operands():
+    c, x = FR.tensor([1, 2, 3], "cpu"), FR.tensor([5], "cpu")
+    with pytest.raises(ValueError):
+        poly.evaluate(c, x)  # the point is (8, 1), not (8,)
+    with pytest.raises(TypeError):
+        poly.synthetic_divide(c.long(), x[:, 0])
+    with pytest.raises(ValueError, match="at least two coefficients"):
+        poly.synthetic_divide(c[:, :1], x[:, 0])
+    assert torch.equal(poly.evaluate(c[:, :0], x[:, 0]), torch.zeros(FR.L, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("n", [1, 2, 5, 17])
