@@ -23,12 +23,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    and block boundaries and the values 1, p - 1 and R mod p, where every
    non-zero lane times its inverse must be Montgomery one; K4 at W = 32, 257,
    a partial run in a partial segment over R > 1 rows, and the commit's
-   131,072, in all four modes; the proof's evaluation and division at n = 1,
-   2, a run's length minus and plus one, a tile, a tile and one and two, and
-   128 tiles and five, each at x = 0, 1, r - 1 and a seeded point, against
-   both plain versions, the division of a polynomial with a known root
-   equal to its other factor, and a non-root raising ProtocolError); the
-   expected result is bit-identical output.
+   131,072, in all four modes); the expected result is bit-identical output.
 4. paths, each driven through the entry points with the launch counts set to
    0 just before and read just after, every call of a kernel wrapper logged
    with its shapes, and the host time spent in Python's garbage collector
@@ -70,7 +65,15 @@ Phases, in order; any failure exits non-zero and prints no result:
 6. profile: one warm 2^20 commit under torch.profiler, device time by kernel;
    the commit's index gathers must take less than one 805 MB table gather
    would at the card's memory rate (the scan reads its own table points).
-7. a line {"kernels": [...]}, then the last line {"ok": true, "device": ...}.
+7. the proof's evaluation and division at n = 1, 2, a run's length minus
+   and plus one, a tile, a tile and one and two, and 128 tiles and five,
+   each at x = 0, 1, r - 1 and a seeded point, against both plain versions;
+   the division of a polynomial with a known root equal to its other
+   factor, and a non-root raising ProtocolError; bit-identical output
+   expected. After every timing: run before the paths, these checks'
+   allocations moved the buffers the later paths allocate, and the window
+   fold (K5) read slower for it.
+8. a line {"kernels": [...]}, then the last line {"ok": true, "device": ...}.
 
 Bounds: the larger of bytes moved / 3.35 TB/s (H100 SXM HBM3) and 32-bit
 integer multiply-adds / 16.7 T/s (132 SMs x 64 IMAD per clock x 1.98 GHz, the
@@ -556,8 +559,6 @@ def phase_kernels(ctx):
                 check(ctx, f"hs_scan_points R={R} W={W} reverse={reverse} exclusive={exclusive}",
                       scans.hs_scan_points(*pts, reverse=reverse, exclusive=exclusive),
                       hs_plain(ctx, pts, reverse, exclusive))
-
-    phase_poly_kernels(ctx)
 
 
 def phase_poly_kernels(ctx):
@@ -1246,6 +1247,8 @@ def main() -> int:
     # last, so that no timing above runs after the profiler
     print("== profile: one warm 2^20 commit", flush=True)
     times["profile"] = phase_profile(ctx, commit)
+    print("== the proof's evaluation and division, exceptional cases", flush=True)
+    phase_poly_kernels(ctx)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
