@@ -39,14 +39,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      build must launch the windowed doubling chain once, no 2^20-lane
      g1_double and at most MAX_FP_MULS_TABLES Fp multiplies (its inversion
      is the inversion kernel's three launches); the commit the fused scan
-     and not the streaming one. The ceremony may launch at most
-     MAX_FP_MULS_CEREMONY Fp multiplies.
+     and not the streaming one, the bucket reduction at most 3 times, K4 4
+     times and K2's add and double never (COMMIT_LAUNCHES). The ceremony
+     may launch at most MAX_FP_MULS_CEREMONY Fp multiplies.
    - proof: Polynomial.evaluate at a seeded x and Evaluation.generate_proof
      (sub, divide_by_root, the quotient's commit against the same tables).
      y must equal the host's Horner value P(x), and the proof
      ((P(s) - y) / (s - x) mod r) G1, in the first run and in 3 warm runs.
      The evaluation and the division must run their kernels, and the path
-     at most MAX_FR_MULS_PROOF Fr multiplies.
+     at most MAX_FR_MULS_PROOF Fr multiplies; its one commit launches as the
+     main path's does (COMMIT_LAUNCHES).
    - batched: the commit below FIXED_BASE_THRESHOLD (n = 8192), which runs
      the batched double-and-add MSM.
    Each commit must equal the host oracle (sum a_i s^i mod r) G1, and each
@@ -70,10 +72,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    each at x = 0, 1, r - 1 and a seeded point, against both plain versions;
    the division of a polynomial with a known root equal to its other
    factor, and a non-root raising ProtocolError; bit-identical output
-   expected. After every timing: run before the paths, these checks'
-   allocations moved the buffers the later paths allocate, and the window
-   fold (K5) read slower for it.
-8. a line {"kernels": [...]}, then the last line {"ok": true, "device": ...}.
+   expected. Then the bucket reduction (stages 6-7 of the commit's MSM) on
+   every bucket empty, only S_top, only b = 0, only b = 2^15 - 1, equal
+   partial sums meeting in a tree (the add doubles) and P and -P meeting in
+   one (infinity), each against both plain versions (bit-identical) and the
+   host oracle (sum_b b k_b) G1, and on seeded words at the commit's chunk
+   count also against the multi-launch route it replaced (K2 and K4). All
+   after every timing: run before the paths, such checks' allocations moved
+   the buffers the later paths allocate, and the window fold (K5) read
+   slower for it.
+8. a line {"kernels": [...]} (the bucket reduction's entry also gives its
+   critical path, BUCKET_REDUCE_CHAIN, and its ms per point operation on
+   it), then the last line {"ok": true, "device": ...}.
 
 Bounds: the larger of bytes moved / 3.35 TB/s (H100 SXM HBM3) and 32-bit
 integer multiply-adds / 16.7 T/s (132 SMs x 64 IMAD per clock x 1.98 GHz, the
@@ -103,7 +113,10 @@ operations against 2^25 / 3.35e12 s = 0.0100 ms of bytes, so 0.0171 ms. Its
 division needs at least n - 2 (the recurrence's n - 1 steps, the first a
 copy), reads 32 n bytes and writes 32 (n - 1): at 2^20, 0.0171 ms of
 operations against (2^26 - 32) / 3.35e12 s = 0.0200 ms of bytes, so
-0.0200 ms.
+0.0200 ms. The bucket reduction (reduce_cost) needs an add for each valid
+V_b and each S_b after S_0, 31 for each of its 2048 + 96 + 3 sums of 32 and
+for each of its 3 suffix scans, 3 subtractions and 3 Horner adds, and 15
+doublings: about 132,000 adds, 0.0707 ms of operations against 5.0 MB read.
 """
 
 from __future__ import annotations
@@ -137,6 +150,15 @@ FP_BYTES = 48
 MAX_FP_MULS_TABLES = 10  # Fp multiply launches the table build may make
 MAX_FP_MULS_CEREMONY = 100  # and the whole ceremony
 MAX_FR_MULS_PROOF = 4  # Fr multiply launches the proof may make
+# a fixed-base commit's launches: the bucket reduction at most 3, K4 (the
+# chunk offsets) 4, the point kernels it replaced none
+COMMIT_LAUNCHES = {"bucket_reduce": (0, 3), "hs_scan_points": (4, 4), "g1_add": (0, 0),
+                   "g1_double": (0, 0)}
+# the bucket reduction's dependent point operations from input to output:
+# V_b, S_b and a tree of 5 (grid sums), a tree of 5 (rows), 5 suffix-scan
+# levels, a tree of 5, minus T_0 and the Horner's 3 adds; its 10 doublings
+# after the first 5, which run beside the suffix sums
+BUCKET_REDUCE_CHAIN = {"adds": 1 + 1 + 5 + 5 + 5 + 5 + 1 + 3, "doubles": 10}
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -156,6 +178,8 @@ KERNELS = {
     "dbl_windows": ("kzg_torch/csrc/dbl_chain.cu", "kzg_tpu/ops/pallas_msm.py:336"),
     "fr_evaluate": ("kzg_torch/csrc/fr_poly.cu", "kzg_tpu/ops/poly.py:56"),
     "fr_divide": ("kzg_torch/csrc/fr_poly.cu", "kzg_tpu/ops/poly.py:69"),
+    # K2 as the MSM's bucket reduction uses it (kzg_tpu/ops/msm.py:610-690)
+    "bucket_reduce": ("kzg_torch/csrc/bucket_reduce.cu", "kzg_tpu/ops/pallas_curve.py:260"),
 }
 # kernel -> its CUDA functions in the -Xptxas -v report
 DEVICE_FUNCTIONS = {
@@ -172,6 +196,7 @@ DEVICE_FUNCTIONS = {
     "dbl_chain": ["dbl_chain_kernel"], "dbl_windows": ["dbl_chain_kernel"],
     "fr_evaluate": ["fr_eval_kernel"],
     "fr_divide": ["fr_eval_kernel", "fr_div_top_kernel", "fr_div_down_kernel"],
+    "bucket_reduce": ["bucket_v_kernel", "bucket_grid_kernel", "bucket_rows_kernel"],
 }
 SRS_CHUNK = 1 << 16  # the chunk bench.py passes to the JAX package's ceremony
 DBL_STEPS = 16
@@ -182,10 +207,10 @@ BATCHED = f"batched-affine commit {BATCHED_N}"
 # the kernels each path must launch
 PATH_KERNELS = {
     CEREMONY: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "g1_madd", "gen_fold"},
-    MAIN: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "dbl_windows", "g1_double", "g1_add",
-           "scan_buckets", "hs_scan_points"},
-    PROOF: {"mont_mul_fr", "g1_double", "g1_add", "scan_buckets", "hs_scan_points",
-            "fr_evaluate", "fr_divide"},
+    MAIN: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "dbl_windows", "scan_buckets",
+           "hs_scan_points", "bucket_reduce"},
+    PROOF: {"mont_mul_fr", "scan_buckets", "hs_scan_points", "bucket_reduce", "fr_evaluate",
+            "fr_divide"},
     BATCHED: {"mont_mul_fr", "g1_double", "g1_add", "g1_madd"},
 }
 
@@ -443,6 +468,60 @@ def gathered_entries(ctx, tables, digits):
             ty[:, w, idx].permute(1, 0, 2).contiguous())
 
 
+def reduce_case(ctx, C: int):
+    """Seeded inputs of the bucket reduction with C chunk offsets: random
+    coordinate words (every seventh U slot and one offset at infinity),
+    non-decreasing slots and chunks as bucket_indices makes them, the first
+    3 buckets invalid."""
+    torch = ctx.torch
+    from kzg_torch.ops import scans
+    from kzg_torch.ops.field import FP
+
+    nb = scans.N_BUCKET_SLOTS
+    U = tuple(ctx.rand_field(FP, nb) for _ in range(3))
+    U[2][:, 1::7] = 0
+    off = tuple(ctx.rand_field(FP, C) for _ in range(3))
+    off[2][:, C // 2] = 0
+    sort = lambda hi: torch.sort(torch.randint(0, hi, (nb,), dtype=torch.int32,  # noqa: E731
+                                               device=ctx.device, generator=ctx.gen))[0]
+    return U, off, sort(nb), sort(C), torch.arange(nb, device=ctx.device) >= 3
+
+
+def reduce_cost(inputs):
+    """(bytes, operations) of one bucket reduction: U, the offsets and the
+    three index arrays read once, one point written; an add for each valid
+    V_b, for each S_b after S_0, for the trees (2048 and 96 sums of 32, and
+    the 3 trees of the suffix sums), a prefix sum's W - 1 for each of the 3
+    suffix scans, the 3 subtractions of T_0 and the Horner's 3 adds, and
+    its 15 doublings."""
+    U, off, _, _, valid = inputs
+    nb, C = U[0].shape[1], off[0].shape[1]
+    adds = int(valid.sum()) + (nb - 1) + (2048 + 96 + 3) * 31 + 3 * 31 + 3 + 3
+    return (3 * FP_BYTES * (nb + C) + 9 * nb + 3 * FP_BYTES,
+            adds * G1_ADD_OPS + 15 * G1_DBL_OPS)
+
+
+def bucket_case(ctx, buckets: dict, valid: bool = True):
+    """Reduction inputs whose bucket sums are k_b G1 for {b: k_b}, the other
+    buckets infinity: U[b] = V_b - off[b % 2], V_b the host's prefix through
+    b, off[0] infinity and off[1] 5 G1 (so that V_b goes through the add).
+    valid=False marks every bucket invalid."""
+    torch = ctx.torch
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops import scans
+    from kzg_torch.utils import hostmath as hm
+
+    offs = [None, hm.g1_mul(hm.G1_GEN, 5)]
+    acc, U = None, []
+    for b in range(scans.N_BUCKET_SLOTS):
+        if b in buckets:
+            acc = hm.g1_add(acc, hm.g1_mul(hm.G1_GEN, buckets[b] % hm.R))
+        U.append(hm.g1_add(acc, hm.g1_neg(offs[b % 2])))
+    idx = torch.arange(scans.N_BUCKET_SLOTS, dtype=torch.int32, device=ctx.device)
+    return (cv.g1_to_device(U, ctx.device), cv.g1_to_device(offs, ctx.device), idx, idx % 2,
+            torch.full_like(idx, int(valid), dtype=torch.bool))
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version, exceptional cases
 # ---------------------------------------------------------------------------
@@ -608,6 +687,43 @@ def phase_poly_kernels(ctx):
         raise AssertionError("divide_by_root at a non-root did not raise ProtocolError")
 
 
+def phase_reduce_edges(ctx, C: int):
+    """The bucket reduction on its exceptional inputs, each against
+    bucket_reduce_plain and the kernel-layout emulation (bit-identical) and
+    the host oracle (sum_b b k_b) G1: every bucket invalid; only S_top; only
+    b = 0 (weight 0: infinity); only b = 2^15 - 1; equal partial sums
+    meeting in a T1 and in a T2 tree (the add doubles); P and -P in one
+    tree (infinity). Then seeded words at the commit's C, also against the
+    multi-launch route it replaced (K2's adds and doubles, K4's scan)."""
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops import msm, scans
+    from kzg_torch.utils import hostmath as hm
+
+    top, t1, t2 = 1 << 15, 3 * 1024 + 5 * 32 + 2, 7 * 32 + 9
+    cases = [("every bucket empty", {}, False), ("only S_top", {top: 12345}, True),
+             ("only b = 0", {0: 777}, True), ("only b = 2^15 - 1", {top - 1: 31}, True),
+             ("equal partial sums in a T1 and a T2 tree",
+              {t1: 11, t1 + 16: 11, t2: 4, t2 + 16 * 1024: 4}, True),
+             ("P and -P in one tree", {t1: 6, t1 + 16: -6}, True)]
+    for label, buckets, valid in cases:
+        inputs = bucket_case(ctx, buckets, valid)
+        got = msm.bucket_reduce(*inputs)
+        check(ctx, f"bucket_reduce, {label}", got, msm.bucket_reduce_plain(*inputs))
+        check(ctx, f"bucket_reduce, {label}, kernel layout", got,
+              msm.bucket_reduce_layout_plain(*inputs))
+        k = sum(b * v for b, v in buckets.items()) % hm.R
+        if cv.g1_from_device(tuple(g[:, None] for g in got)) != [
+                hm.g1_mul(hm.G1_GEN, k) if k else None]:
+            raise AssertionError(f"bucket_reduce, {label}: differs from the host oracle")
+    inputs = reduce_case(ctx, C)
+    got = msm.bucket_reduce(*inputs)
+    check(ctx, f"bucket_reduce, seeded words, C={C}", got, msm.bucket_reduce_plain(*inputs))
+    check(ctx, f"bucket_reduce, seeded words, C={C}, against the multi-launch route", got,
+          msm.bucket_reduce_plain(*inputs, ops=(cv.g1_add, cv.g1_double, scans.hs_scan_points)))
+    check(ctx, f"bucket_reduce, seeded words, C={C}, kernel layout", got,
+          msm.bucket_reduce_layout_plain(*inputs))
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the paths, with every wrapper call logged
 # ---------------------------------------------------------------------------
@@ -618,7 +734,7 @@ def logging_calls():
     """Inside the block, count each outermost call of a kernel wrapper by its
     spec (kernel, shape, mode): what the replay needs to rebuild inputs of the
     same shapes. The wrappers are swapped in their modules and put back."""
-    from kzg_torch.ops import curve as cv, field as fld, genmul, scans
+    from kzg_torch.ops import curve as cv, field as fld, genmul, msm, scans
     from kzg_torch.ops import poly as polyops
 
     calls = collections.Counter()
@@ -642,6 +758,8 @@ def logging_calls():
             "dbl_windows", tuple(p[0].shape), steps, windows)),
         (polyops, "evaluate", lambda coeffs, x: ("fr_evaluate", tuple(coeffs.shape))),
         (polyops, "synthetic_divide", lambda coeffs, root: ("fr_divide", tuple(coeffs.shape))),
+        (msm, "bucket_reduce", lambda U, off, slot, c, valid: (
+            "bucket_reduce", tuple(U[0].shape), tuple(off[0].shape))),
     ]
     originals = []
 
@@ -683,6 +801,16 @@ def drive(ctx, label, fn):
     if missing:
         raise AssertionError(f"{label}: kernels not launched: {missing}")
     return ms, out, launches, dict(calls)
+
+
+def check_commit_launches(label, launches):
+    """A path with one fixed-base commit launched the bucket reduction at
+    most 3 times, K4 4 times and K2's add and double never."""
+    for name, (lo, hi) in COMMIT_LAUNCHES.items():
+        got = launches.get(name, 0)
+        if not lo <= got <= hi:
+            raise AssertionError(f"{label}: {got} {name} launches on its one commit "
+                                 f"(expected {lo} to {hi})")
 
 
 def phase_paths(ctx):
@@ -772,6 +900,7 @@ def phase_paths(ctx):
                              f"chain launches and 2^{LOG_N}-lane doublings {wide_doubles}")
     if launches.get("scan_madd"):
         raise AssertionError("the commit launched the streaming scan")
+    check_commit_launches(MAIN, launches)
     if c.affine() != expected:
         raise AssertionError("commit differs from the host oracle (sum a_i s^i mod r) G1")
     print(f"  table build {t_tab:.1f} ms, first commit {t_path - t_tab:.1f} ms; equals the host "
@@ -801,6 +930,7 @@ def phase_paths(ctx):
     t_proof, (ev, proof), proof_launches, proof_calls = drive(ctx, PROOF, proof_path)
     if proof_launches.get("scan_madd"):
         raise AssertionError("the proof launched the streaming scan")
+    check_commit_launches(PROOF, proof_launches)
     if proof_launches.get("mont_mul_fr", 0) > MAX_FR_MULS_PROOF:
         raise AssertionError(f"the proof made {proof_launches['mont_mul_fr']} Fr multiply "
                              f"launches (at most {MAX_FR_MULS_PROOF})")
@@ -1064,6 +1194,12 @@ def replay_case(ctx, spec):
         return (lambda: polyops.synthetic_divide(c, x),
                 lambda: polyops.synthetic_divide_plain(c, x),
                 4 * FR.L * (2 * n - 1), FR_MUL_OPS * (n - 2))
+    if name == "bucket_reduce":
+        from kzg_torch.ops import msm
+
+        inputs = reduce_case(ctx, spec[2][1])
+        return (lambda: msm.bucket_reduce(*inputs), lambda: msm.bucket_reduce_plain(*inputs),
+                *reduce_cost(inputs))
     if name == "dbl_chain":
         steps = spec[2]
         n = math.prod(shape[1:])
@@ -1249,6 +1385,9 @@ def main() -> int:
     times["profile"] = phase_profile(ctx, commit)
     print("== the proof's evaluation and division, exceptional cases", flush=True)
     phase_poly_kernels(ctx)
+    print("== the bucket reduction, exceptional cases", flush=True)
+    spec = next(spec for spec in paths[MAIN][1] if spec[0] == "bucket_reduce")
+    phase_reduce_edges(ctx, spec[2][1])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1270,6 +1409,13 @@ def main() -> int:
                                for f in DEVICE_FUNCTIONS[name]),
             "launches_by_path": {lb: paths[lb][0].get(name, 0) for lb in paths},
         })
+        if name == "bucket_reduce":
+            chain = sum(BUCKET_REDUCE_CHAIN.values())
+            kernels[-1]["critical_path"] = dict(BUCKET_REDUCE_CHAIN, ms_per_op=t["ms"] / chain)
+            print(f"  bucket_reduce: {t['ms']:.4f} ms over a critical path of "
+                  f"{BUCKET_REDUCE_CHAIN['adds']} dependent adds and "
+                  f"{BUCKET_REDUCE_CHAIN['doubles']} doublings, {t['ms'] / chain * 1e3:.1f} us a "
+                  f"point operation", flush=True)
     times["gc_ms_by_path"] = ctx.path_gc_ms
     print(json.dumps({"slice_ms": times, "card": card,
                       "paths": {lb: {k: {f: v for f, v in t.items() if f != "err"}

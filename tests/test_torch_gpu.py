@@ -183,3 +183,35 @@ def test_fr_poly_kernels_match_plain(cuda, n):
         assert _same(poly.evaluate(c, xw), poly.evaluate_plain(c, xw))
         if n >= 2:
             assert _same(poly.synthetic_divide(c, xw), poly.synthetic_divide_plain(c, xw))
+
+
+@pytest.mark.parametrize("case", ["every bucket empty", "equal sums in a tree",
+                                  "P and -P in a tree", "random"])
+def test_bucket_reduce_kernel_matches_plain(cuda, case):
+    """The bucket reduction against bucket_reduce_plain and the kernel-layout
+    emulation, bit for bit: every bucket invalid; equal partial sums meeting
+    in a T1 and in a T2 tree (the add doubles); P and -P meeting in one
+    tree (infinity); seeded words at C = 37 with infinity lanes and the
+    first buckets invalid."""
+    from kzg_torch.ops import msm
+    from test_torch_msm import BUCKET_CASES, bucket_case
+
+    nb = scans.N_BUCKET_SLOTS
+    if case == "random":
+        U = tuple(_rand(FP, nb, s).to(cuda) for s in (27, 28, 29))
+        U[2][:, 1::7] = 0
+        off = tuple(_rand(FP, 37, s).to(cuda) for s in (30, 31, 32))
+        rng = np.random.default_rng(33)
+        slot = torch.from_numpy(np.sort(rng.integers(0, nb, nb)).astype(np.int32)).to(cuda)
+        c = torch.from_numpy(np.sort(rng.integers(0, 37, nb)).astype(np.int32)).to(cuda)
+        inputs = (U, off, slot, c, torch.arange(nb, device=cuda) >= 3)
+        got = msm.bucket_reduce(*inputs)
+    else:
+        buckets = BUCKET_CASES[case]
+        inputs = bucket_case(buckets, cuda, valid=case != "every bucket empty")
+        want = sum(b * k for b, k in buckets.items()) % hm.R
+        got = msm.bucket_reduce(*inputs)
+        assert cv.g1_from_device(tuple(g[:, None] for g in got)) == [
+            hm.g1_mul(hm.G1_GEN, want) if want else None]
+    assert _same(got, msm.bucket_reduce_plain(*inputs))
+    assert _same(got, msm.bucket_reduce_layout_plain(*inputs))

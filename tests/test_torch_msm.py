@@ -30,6 +30,43 @@ def _affine(p):
     return cv.g1_from_device(tuple(c.reshape(FP.L, -1) for c in p))
 
 
+_TOP = 1 << 15
+# element w = 2 of the T1 sum (u, v) = (3, 5), and element u = 0 of the T2
+# sum (v, w) = (7, 9): each meets the bucket 16 elements on at a tree's
+# first level
+_T1, _T2 = 3 * 1024 + 5 * 32 + 2, 7 * 32 + 9
+# the bucket reduction's exceptional inputs as {b: k_b}, S_b = k_b G
+BUCKET_CASES = {
+    "every bucket empty": {},
+    "only S_top": {_TOP: 12345},
+    "only b = 0": {0: 777},  # weight 0: infinity
+    "only b = 2^15 - 1": {_TOP - 1: 31},
+    "equal sums in a tree": {_T1: 11, _T1 + 16: 11, _T2: 4, _T2 + 16 * 1024: 4},  # doubles
+    "P and -P in a tree": {_T1: 6, _T1 + 16: -6},  # infinity
+}
+
+
+def bucket_case(buckets, device="cpu", valid=True):
+    """Inputs of the bucket reduction whose bucket sums are k_b G for
+    {b: k_b}, the other buckets infinity: U[b] = V_b - off[b % 2], V_b the
+    host's prefix sum through b, off[0] infinity and off[1] 5 G (so that V_b
+    goes through the add). valid=False marks every bucket invalid."""
+    offs = [None, hm.g1_mul(hm.G1_GEN, 5)]
+    acc, U = None, []
+    for b in range(scans.N_BUCKET_SLOTS):
+        if b in buckets:
+            acc = hm.g1_add(acc, hm.g1_mul(hm.G1_GEN, buckets[b]))
+        U.append(hm.g1_add(acc, hm.g1_neg(offs[b % 2])))
+    idx = torch.arange(scans.N_BUCKET_SLOTS, dtype=torch.int32, device=device)
+    return (cv.g1_to_device(U, device), cv.g1_to_device(offs, device), idx, idx % 2,
+            torch.full_like(idx, int(valid), dtype=torch.bool))
+
+
+def _weighted_oracle(buckets):
+    k = sum(b * v for b, v in buckets.items()) % hm.R
+    return [hm.g1_mul(hm.G1_GEN, k) if k else None]
+
+
 @pytest.fixture(scope="module")
 def tables64():
     """64 SRS-like points i * G (i = 1..64), one of them flagged infinite,
@@ -308,3 +345,61 @@ def test_msm_on_kzg_tpu_tables(tables64):
     got = msm.msm_g1_fixed(tables, cv.fr_std_words(ks, "cpu"), inf_mask=mask)
     expect = sum((i + 1) * k for i, k in enumerate(ks) if i != 7) % hm.R
     assert _affine(got) == [hm.g1_mul(hm.G1_GEN, expect)]
+
+
+def test_bucket_indices_pick_the_last_position_at_or_below_each_bucket():
+    """slot_b is the largest present digit <= b, c_b the chunk of its last
+    position, and buckets below the smallest digit are not valid."""
+    ds = torch.tensor([2, 2, 2, 5, 9, 9, 9, 9], dtype=torch.int32)
+    slot, c, valid = msm.bucket_indices(ds, 3)
+    assert slot.dtype == c.dtype == torch.int32 and slot.shape == (scans.N_BUCKET_SLOTS,)
+    assert valid[:2].tolist() == [False, False] and bool(valid[2:].all())
+    assert slot[2:12].tolist() == [2, 2, 2, 5, 5, 5, 5, 9, 9, 9]
+    assert c[2:12].tolist() == [0, 0, 0, 1, 1, 1, 1, 2, 2, 2]
+    assert int(slot[-1]) == 9 and int(c[-1]) == 2
+
+
+@pytest.mark.parametrize("case", list(BUCKET_CASES))
+def test_bucket_reduce_plain_matches_host(case):
+    """The reduction's plain version (msm.bucket_reduce on a CPU tensor) on
+    sparse bucket sums: (sum_b b k_b) G."""
+    buckets = BUCKET_CASES[case]
+    got = msm.bucket_reduce(*bucket_case(buckets, valid=case != "every bucket empty"))
+    assert _affine(got) == _weighted_oracle(buckets)
+
+
+@pytest.mark.parametrize("case", ["equal sums in a tree", "P and -P in a tree"])
+def test_bucket_reduce_layout_plain_bit_identical(case):
+    """The python emulation of the kernel's layout (which sum and element
+    reads which b, the partners at each tree and scan level, where S_top and
+    T_0 come from) equals the plain version word for word."""
+    inputs = bucket_case(BUCKET_CASES[case])
+    got = msm.bucket_reduce_layout_plain(*inputs)
+    want = msm.bucket_reduce_plain(*inputs)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert _affine(got) == _weighted_oracle(BUCKET_CASES[case])
+
+
+@pytest.mark.slow
+def test_bucket_reduce_plain_matches_kzg_tpu_fbs_reduce():
+    """On the same bucket sums S (stage 6 of the plain version), stage 7
+    equals kzg_tpu's _fbs_reduce (grid trees, suffix-weighted sums, Horner)
+    as a group element, and both the host oracle. Slow: the JAX reduction
+    takes 463-504 s on one CPU core, with a warm compile cache or a cold one."""
+    from kzg_tpu.ops import msm as jmsm
+
+    buckets = {**BUCKET_CASES["equal sums in a tree"], 0: 5, _TOP: 9, _TOP - 1: 2, 777: 3}
+    inputs = bucket_case(buckets)
+    S = msm.bucket_sums(*inputs)
+    want = jmsm._fbs_reduce(tuple(convert.to_jax_limbs(c) for c in S))
+    want = tuple(convert.from_jax_limbs(np.asarray(w)) for w in want)
+    assert _affine(msm.weighted_bucket_sum(S)) == _affine(want) == _weighted_oracle(buckets)
+
+
+def test_bucket_reduce_checks_its_operands():
+    inputs = bucket_case({})
+    U, off, slot, c, valid = inputs
+    with pytest.raises(ValueError):
+        msm.bucket_reduce(tuple(u[:, :-1] for u in U), off, slot[:-1], c[:-1], valid[:-1])
+    with pytest.raises(ValueError):
+        msm.bucket_reduce(U, (off[0], off[1], off[2][:, :1].reshape(-1)), slot, c, valid)
