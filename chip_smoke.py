@@ -113,10 +113,11 @@ operations against 2^25 / 3.35e12 s = 0.0100 ms of bytes, so 0.0171 ms. Its
 division needs at least n - 2 (the recurrence's n - 1 steps, the first a
 copy), reads 32 n bytes and writes 32 (n - 1): at 2^20, 0.0171 ms of
 operations against (2^26 - 32) / 3.35e12 s = 0.0200 ms of bytes, so
-0.0200 ms. The bucket reduction (reduce_cost) needs an add for each valid
-V_b and each S_b after S_0, 31 for each of its 2048 + 96 + 3 sums of 32 and
-for each of its 3 suffix scans, 3 subtractions and 3 Horner adds, and 15
-doublings: about 132,000 adds, 0.0707 ms of operations against 5.0 MB read.
+0.0200 ms. The bucket reduction (reduce_cost) of 2^15 + 1 buckets needs,
+since sum_b b S_b = 2^15 V_top - sum_(b < 2^15) V_b, an add for each valid
+V_b, 2^15 - 1 adds for the sum, one subtraction and 15 doublings: at most
+65,537 adds, 0.0350 ms of operations, against 23.9 MB read at the commit's
+C = 2^17 (0.0071 ms), whatever route its kernel takes.
 """
 
 from __future__ import annotations
@@ -489,37 +490,16 @@ def reduce_case(ctx, C: int):
 
 def reduce_cost(inputs):
     """(bytes, operations) of one bucket reduction: U, the offsets and the
-    three index arrays read once, one point written; an add for each valid
-    V_b, for each S_b after S_0, for the trees (2048 and 96 sums of 32, and
-    the 3 trees of the suffix sums), a prefix sum's W - 1 for each of the 3
-    suffix scans, the 3 subtractions of T_0 and the Horner's 3 adds, and
-    its 15 doublings."""
+    three index arrays read once, one point written; and the point
+    operations the function needs, whatever route a kernel takes. S_b =
+    V_b - V_(b-1) with V_(-1) infinity, so sum_b b S_b telescopes to
+    2^15 V_top - sum_(b < 2^15) V_b: an add for each valid V_b, 2^15 - 1
+    adds for the sum, 15 doublings of V_top and one subtraction."""
     U, off, _, _, valid = inputs
     nb, C = U[0].shape[1], off[0].shape[1]
-    adds = int(valid.sum()) + (nb - 1) + (2048 + 96 + 3) * 31 + 3 * 31 + 3 + 3
+    adds = int(valid.sum()) + (nb - 2) + 1
     return (3 * FP_BYTES * (nb + C) + 9 * nb + 3 * FP_BYTES,
             adds * G1_ADD_OPS + 15 * G1_DBL_OPS)
-
-
-def bucket_case(ctx, buckets: dict, valid: bool = True):
-    """Reduction inputs whose bucket sums are k_b G1 for {b: k_b}, the other
-    buckets infinity: U[b] = V_b - off[b % 2], V_b the host's prefix through
-    b, off[0] infinity and off[1] 5 G1 (so that V_b goes through the add).
-    valid=False marks every bucket invalid."""
-    torch = ctx.torch
-    from kzg_torch.ops import curve as cv
-    from kzg_torch.ops import scans
-    from kzg_torch.utils import hostmath as hm
-
-    offs = [None, hm.g1_mul(hm.G1_GEN, 5)]
-    acc, U = None, []
-    for b in range(scans.N_BUCKET_SLOTS):
-        if b in buckets:
-            acc = hm.g1_add(acc, hm.g1_mul(hm.G1_GEN, buckets[b] % hm.R))
-        U.append(hm.g1_add(acc, hm.g1_neg(offs[b % 2])))
-    idx = torch.arange(scans.N_BUCKET_SLOTS, dtype=torch.int32, device=ctx.device)
-    return (cv.g1_to_device(U, ctx.device), cv.g1_to_device(offs, ctx.device), idx, idx % 2,
-            torch.full_like(idx, int(valid), dtype=torch.bool))
 
 
 # ---------------------------------------------------------------------------
@@ -697,23 +677,16 @@ def phase_reduce_edges(ctx, C: int):
     multi-launch route it replaced (K2's adds and doubles, K4's scan)."""
     from kzg_torch.ops import curve as cv
     from kzg_torch.ops import msm, scans
-    from kzg_torch.utils import hostmath as hm
+    from kzg_torch.utils import reduce_cases
 
-    top, t1, t2 = 1 << 15, 3 * 1024 + 5 * 32 + 2, 7 * 32 + 9
-    cases = [("every bucket empty", {}, False), ("only S_top", {top: 12345}, True),
-             ("only b = 0", {0: 777}, True), ("only b = 2^15 - 1", {top - 1: 31}, True),
-             ("equal partial sums in a T1 and a T2 tree",
-              {t1: 11, t1 + 16: 11, t2: 4, t2 + 16 * 1024: 4}, True),
-             ("P and -P in one tree", {t1: 6, t1 + 16: -6}, True)]
-    for label, buckets, valid in cases:
-        inputs = bucket_case(ctx, buckets, valid)
+    for label, buckets in reduce_cases.BUCKET_CASES.items():
+        inputs = reduce_cases.bucket_case(buckets, ctx.device, valid=bool(buckets))
         got = msm.bucket_reduce(*inputs)
         check(ctx, f"bucket_reduce, {label}", got, msm.bucket_reduce_plain(*inputs))
         check(ctx, f"bucket_reduce, {label}, kernel layout", got,
               msm.bucket_reduce_layout_plain(*inputs))
-        k = sum(b * v for b, v in buckets.items()) % hm.R
-        if cv.g1_from_device(tuple(g[:, None] for g in got)) != [
-                hm.g1_mul(hm.G1_GEN, k) if k else None]:
+        if cv.g1_from_device(tuple(g[:, None] for g in got)) != reduce_cases.weighted_oracle(
+                buckets):
             raise AssertionError(f"bucket_reduce, {label}: differs from the host oracle")
     inputs = reduce_case(ctx, C)
     got = msm.bucket_reduce(*inputs)

@@ -32,11 +32,13 @@
 //                S_top and its first 5 doublings; then the Horner on one
 //                thread.
 //
-// Bound on an H100: operations (about 132,000 point adds, 8,940 IMADs each,
-// against 5 MB read). What holds it back is latency: the path from input to
-// output is 26 dependent adds and 10 dependent doublings, each a chain of
-// field multiplies on one thread, and the rows and tail run on 24 blocks and
-// one. So every add and doubling calls the out-of-line multiply and square
+// Bound on an H100: operations. S telescopes, so sum_b b S_b = 2^15 V_top -
+// sum_(b < 2^15) V_b: the function needs at most 2^16 + 1 point adds (8,940
+// IMADs each) and 15 doublings, against 24 MB read at the commit's 2^17
+// chunks; this route makes about twice those adds. What holds it back is
+// latency: the path from input to output is 26 dependent adds and 10
+// dependent doublings, each a chain of field multiplies on one thread, and
+// the rows and tail run on 24 blocks and one. So every add and doubling calls the out-of-line multiply and square
 // (g1.cuh FieldCalled), which a dependent chain runs in under half the time
 // of the inlined formulas (instruction fetch); the trees read and write
 // their points in shared memory, as K4 does, so that no point outlives an

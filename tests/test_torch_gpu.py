@@ -194,7 +194,7 @@ def test_bucket_reduce_kernel_matches_plain(cuda, case):
     tree (infinity); seeded words at C = 37 with infinity lanes and the
     first buckets invalid."""
     from kzg_torch.ops import msm
-    from test_torch_msm import BUCKET_CASES, bucket_case
+    from kzg_torch.utils.reduce_cases import BUCKET_CASES, bucket_case
 
     nb = scans.N_BUCKET_SLOTS
     if case == "random":

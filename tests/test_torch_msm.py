@@ -12,6 +12,7 @@ from kzg_torch.ops import curve as cv
 from kzg_torch.ops import msm, scans
 from kzg_torch.ops.field import FP
 from kzg_torch.utils import hostmath as hm
+from kzg_torch.utils.reduce_cases import BUCKET_CASES, TOP, bucket_case, weighted_oracle
 
 
 def _points(n, seed):
@@ -28,43 +29,6 @@ def _scalars(n, seed):
 
 def _affine(p):
     return cv.g1_from_device(tuple(c.reshape(FP.L, -1) for c in p))
-
-
-_TOP = 1 << 15
-# element w = 2 of the T1 sum (u, v) = (3, 5), and element u = 0 of the T2
-# sum (v, w) = (7, 9): each meets the bucket 16 elements on at a tree's
-# first level
-_T1, _T2 = 3 * 1024 + 5 * 32 + 2, 7 * 32 + 9
-# the bucket reduction's exceptional inputs as {b: k_b}, S_b = k_b G
-BUCKET_CASES = {
-    "every bucket empty": {},
-    "only S_top": {_TOP: 12345},
-    "only b = 0": {0: 777},  # weight 0: infinity
-    "only b = 2^15 - 1": {_TOP - 1: 31},
-    "equal sums in a tree": {_T1: 11, _T1 + 16: 11, _T2: 4, _T2 + 16 * 1024: 4},  # doubles
-    "P and -P in a tree": {_T1: 6, _T1 + 16: -6},  # infinity
-}
-
-
-def bucket_case(buckets, device="cpu", valid=True):
-    """Inputs of the bucket reduction whose bucket sums are k_b G for
-    {b: k_b}, the other buckets infinity: U[b] = V_b - off[b % 2], V_b the
-    host's prefix sum through b, off[0] infinity and off[1] 5 G (so that V_b
-    goes through the add). valid=False marks every bucket invalid."""
-    offs = [None, hm.g1_mul(hm.G1_GEN, 5)]
-    acc, U = None, []
-    for b in range(scans.N_BUCKET_SLOTS):
-        if b in buckets:
-            acc = hm.g1_add(acc, hm.g1_mul(hm.G1_GEN, buckets[b]))
-        U.append(hm.g1_add(acc, hm.g1_neg(offs[b % 2])))
-    idx = torch.arange(scans.N_BUCKET_SLOTS, dtype=torch.int32, device=device)
-    return (cv.g1_to_device(U, device), cv.g1_to_device(offs, device), idx, idx % 2,
-            torch.full_like(idx, int(valid), dtype=torch.bool))
-
-
-def _weighted_oracle(buckets):
-    k = sum(b * v for b, v in buckets.items()) % hm.R
-    return [hm.g1_mul(hm.G1_GEN, k) if k else None]
 
 
 @pytest.fixture(scope="module")
@@ -365,7 +329,7 @@ def test_bucket_reduce_plain_matches_host(case):
     sparse bucket sums: (sum_b b k_b) G."""
     buckets = BUCKET_CASES[case]
     got = msm.bucket_reduce(*bucket_case(buckets, valid=case != "every bucket empty"))
-    assert _affine(got) == _weighted_oracle(buckets)
+    assert _affine(got) == weighted_oracle(buckets)
 
 
 @pytest.mark.parametrize("case", ["equal sums in a tree", "P and -P in a tree"])
@@ -377,7 +341,7 @@ def test_bucket_reduce_layout_plain_bit_identical(case):
     got = msm.bucket_reduce_layout_plain(*inputs)
     want = msm.bucket_reduce_plain(*inputs)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert _affine(got) == _weighted_oracle(BUCKET_CASES[case])
+    assert _affine(got) == weighted_oracle(BUCKET_CASES[case])
 
 
 @pytest.mark.slow
@@ -388,12 +352,12 @@ def test_bucket_reduce_plain_matches_kzg_tpu_fbs_reduce():
     takes 463-504 s on one CPU core, with a warm compile cache or a cold one."""
     from kzg_tpu.ops import msm as jmsm
 
-    buckets = {**BUCKET_CASES["equal sums in a tree"], 0: 5, _TOP: 9, _TOP - 1: 2, 777: 3}
+    buckets = {**BUCKET_CASES["equal sums in a tree"], 0: 5, TOP: 9, TOP - 1: 2, 777: 3}
     inputs = bucket_case(buckets)
     S = msm.bucket_sums(*inputs)
     want = jmsm._fbs_reduce(tuple(convert.to_jax_limbs(c) for c in S))
     want = tuple(convert.from_jax_limbs(np.asarray(w)) for w in want)
-    assert _affine(msm.weighted_bucket_sum(S)) == _affine(want) == _weighted_oracle(buckets)
+    assert _affine(msm.weighted_bucket_sum(S)) == _affine(want) == weighted_oracle(buckets)
 
 
 def test_bucket_reduce_checks_its_operands():
