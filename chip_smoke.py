@@ -39,8 +39,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      build must launch the windowed doubling chain once, no 2^20-lane
      g1_double and at most MAX_FP_MULS_TABLES Fp multiplies (its inversion
      is the inversion kernel's three launches); the commit the fused scan
-     and not the streaming one, the bucket reduction at most 3 times, K4 4
-     times and K2's add and double never (COMMIT_LAUNCHES). The ceremony
+     and not the streaming one, the bucket reduction once, K4 4 times and
+     K2's add and double never (COMMIT_LAUNCHES). The ceremony
      may launch at most MAX_FP_MULS_CEREMONY Fp multiplies.
    - proof: Polynomial.evaluate at a seeded x and Evaluation.generate_proof
      (sub, divide_by_root, the quotient's commit against the same tables).
@@ -73,14 +73,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    the division of a polynomial with a known root equal to its other
    factor, and a non-root raising ProtocolError; bit-identical output
    expected. Then the bucket reduction (stages 6-7 of the commit's MSM) on
-   every bucket empty, only S_top, only b = 0, only b = 2^15 - 1, equal
-   partial sums meeting in a tree (the add doubles) and P and -P meeting in
-   one (infinity), each against both plain versions (bit-identical) and the
-   host oracle (sum_b b k_b) G1, and on seeded words at the commit's chunk
-   count also against the multi-launch route it replaced (K2 and K4). All
-   after every timing: run before the paths, such checks' allocations moved
-   the buffers the later paths allocate, and the window fold (K5) read
-   slower for it.
+   every case of kzg_torch/utils/reduce_cases.py (every bucket empty, only
+   S_top, only b = 0, only b = 2^15 - 1, equal leaves (the add doubles), P
+   and -P meeting at a block-tree level and in the last block's tree
+   (infinity)) and on seeded words at the commit's chunk count, each
+   against its plain version and that route replayed on K2's add
+   (bit-identical), the cases also against the host oracle (sum_b b k_b) G1.
+   All after every timing: run before the paths, such checks' allocations
+   moved the buffers the later paths allocate, and the window fold (K5)
+   read slower for it.
 8. a line {"kernels": [...]} (the bucket reduction's entry also gives its
    critical path, BUCKET_REDUCE_CHAIN, and its ms per point operation on
    it), then the last line {"ok": true, "device": ...}.
@@ -151,15 +152,14 @@ FP_BYTES = 48
 MAX_FP_MULS_TABLES = 10  # Fp multiply launches the table build may make
 MAX_FP_MULS_CEREMONY = 100  # and the whole ceremony
 MAX_FR_MULS_PROOF = 4  # Fr multiply launches the proof may make
-# a fixed-base commit's launches: the bucket reduction at most 3, K4 (the
-# chunk offsets) 4, the point kernels it replaced none
-COMMIT_LAUNCHES = {"bucket_reduce": (0, 3), "hs_scan_points": (4, 4), "g1_add": (0, 0),
+# a fixed-base commit's launches: the bucket reduction 1, K4 (the chunk
+# offsets) 4, the point kernels the reduction replaced none
+COMMIT_LAUNCHES = {"bucket_reduce": (1, 1), "hs_scan_points": (4, 4), "g1_add": (0, 0),
                    "g1_double": (0, 0)}
 # the bucket reduction's dependent point operations from input to output:
-# V_b, S_b and a tree of 5 (grid sums), a tree of 5 (rows), 5 suffix-scan
-# levels, a tree of 5, minus T_0 and the Horner's 3 adds; its 10 doublings
-# after the first 5, which run beside the suffix sums
-BUCKET_REDUCE_CHAIN = {"adds": 1 + 1 + 5 + 5 + 5 + 5 + 1 + 3, "doubles": 10}
+# V_b and V_top (thread 0 forms both), the leaf V_top - V_b, the block's
+# tree of 8 levels and the last block's of 7
+BUCKET_REDUCE_CHAIN = {"adds": 2 + 1 + 8 + 7, "doubles": 0}
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -179,7 +179,7 @@ KERNELS = {
     "dbl_windows": ("kzg_torch/csrc/dbl_chain.cu", "kzg_tpu/ops/pallas_msm.py:336"),
     "fr_evaluate": ("kzg_torch/csrc/fr_poly.cu", "kzg_tpu/ops/poly.py:56"),
     "fr_divide": ("kzg_torch/csrc/fr_poly.cu", "kzg_tpu/ops/poly.py:69"),
-    # K2 as the MSM's bucket reduction uses it (kzg_tpu/ops/msm.py:610-690)
+    # K2 as the MSM's bucket reduction uses it (kzg_tpu/ops/msm.py:608-686, :817)
     "bucket_reduce": ("kzg_torch/csrc/bucket_reduce.cu", "kzg_tpu/ops/pallas_curve.py:260"),
 }
 # kernel -> its CUDA functions in the -Xptxas -v report
@@ -197,7 +197,7 @@ DEVICE_FUNCTIONS = {
     "dbl_chain": ["dbl_chain_kernel"], "dbl_windows": ["dbl_chain_kernel"],
     "fr_evaluate": ["fr_eval_kernel"],
     "fr_divide": ["fr_eval_kernel", "fr_div_top_kernel", "fr_div_down_kernel"],
-    "bucket_reduce": ["bucket_v_kernel", "bucket_grid_kernel", "bucket_rows_kernel"],
+    "bucket_reduce": ["bucket_reduce_kernel"],
 }
 SRS_CHUNK = 1 << 16  # the chunk bench.py passes to the JAX package's ceremony
 DBL_STEPS = 16
@@ -668,33 +668,31 @@ def phase_poly_kernels(ctx):
 
 
 def phase_reduce_edges(ctx, C: int):
-    """The bucket reduction on its exceptional inputs, each against
-    bucket_reduce_plain and the kernel-layout emulation (bit-identical) and
-    the host oracle (sum_b b k_b) G1: every bucket invalid; only S_top; only
-    b = 0 (weight 0: infinity); only b = 2^15 - 1; equal partial sums
-    meeting in a T1 and in a T2 tree (the add doubles); P and -P in one
-    tree (infinity). Then seeded words at the commit's C, also against the
-    multi-launch route it replaced (K2's adds and doubles, K4's scan)."""
+    """The bucket reduction on its exceptional inputs (the case table of
+    kzg_torch/utils/reduce_cases.py), each against bucket_reduce_plain and
+    that route replayed on K2's add (bit-identical) and the host oracle
+    (sum_b b k_b) G1: every bucket invalid; only S_top (every leaf equal:
+    the add doubles at every level); only b = 0 (weight 0: infinity); only
+    b = 2^15 - 1; equal leaves; P and -P meeting at a block-tree level and
+    in the last block's tree (infinity). Then seeded words at the commit's
+    C, against both."""
     from kzg_torch.ops import curve as cv
-    from kzg_torch.ops import msm, scans
+    from kzg_torch.ops import msm
     from kzg_torch.utils import reduce_cases
 
-    for label, buckets in reduce_cases.BUCKET_CASES.items():
-        inputs = reduce_cases.bucket_case(buckets, ctx.device, valid=bool(buckets))
+    def both(label, inputs):
         got = msm.bucket_reduce(*inputs)
         check(ctx, f"bucket_reduce, {label}", got, msm.bucket_reduce_plain(*inputs))
-        check(ctx, f"bucket_reduce, {label}, kernel layout", got,
-              msm.bucket_reduce_layout_plain(*inputs))
+        check(ctx, f"bucket_reduce, {label}, the same route on K2's add", got,
+              msm.bucket_reduce_plain(*inputs, add=cv.g1_add))
+        return got
+
+    for label, buckets in reduce_cases.BUCKET_CASES.items():
+        got = both(label, reduce_cases.bucket_case(buckets, ctx.device, valid=bool(buckets)))
         if cv.g1_from_device(tuple(g[:, None] for g in got)) != reduce_cases.weighted_oracle(
                 buckets):
             raise AssertionError(f"bucket_reduce, {label}: differs from the host oracle")
-    inputs = reduce_case(ctx, C)
-    got = msm.bucket_reduce(*inputs)
-    check(ctx, f"bucket_reduce, seeded words, C={C}", got, msm.bucket_reduce_plain(*inputs))
-    check(ctx, f"bucket_reduce, seeded words, C={C}, against the multi-launch route", got,
-          msm.bucket_reduce_plain(*inputs, ops=(cv.g1_add, cv.g1_double, scans.hs_scan_points)))
-    check(ctx, f"bucket_reduce, seeded words, C={C}, kernel layout", got,
-          msm.bucket_reduce_layout_plain(*inputs))
+    both(f"seeded words, C={C}", reduce_case(ctx, C))
 
 
 # ---------------------------------------------------------------------------
@@ -777,8 +775,8 @@ def drive(ctx, label, fn):
 
 
 def check_commit_launches(label, launches):
-    """A path with one fixed-base commit launched the bucket reduction at
-    most 3 times, K4 4 times and K2's add and double never."""
+    """A path with one fixed-base commit launched the bucket reduction
+    once, K4 4 times and K2's add and double never."""
     for name, (lo, hi) in COMMIT_LAUNCHES.items():
         got = launches.get(name, 0)
         if not lo <= got <= hi:

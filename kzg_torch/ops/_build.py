@@ -58,9 +58,7 @@ SIGNATURES = {
     "kzg_fr_eval": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
     "kzg_fr_div_top": [_P, _I, _P, _P, _P],
     "kzg_fr_div_down": [_P, _I, _P, _P, _I, _P, _P, _P],
-    "kzg_bucket_v": [_P] * 10 + [_I, _I, _P],
-    "kzg_bucket_grid": [_P, _P],
-    "kzg_bucket_rows": [_P, _P, _P],
+    "kzg_bucket_reduce": [_P] * 11 + [_I, _I, _P],
 }
 
 _lib = None

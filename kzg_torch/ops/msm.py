@@ -18,17 +18,18 @@ Counterpart of ``kzg_tpu/ops/msm.py``. Two paths give the same group element:
     4. the chunked bucket scan (K3, fused): chunk totals, and the chunk
        prefix at each digit's last position
     5. chunk offsets: the exclusive prefix of the chunk totals (K4)
-    6. bucket sums S_b = V_b - V_{b-1} from global prefixes at each digit's
-       last position
-    7. sum_b b S_b by a 3-axis digit grid (b = 2^10 u + 2^5 v + w), suffix-
-       weighted sums and a Horner combine
-  Stages 6-7 are one kernel in three launches (``bucket_reduce``,
+    6. global prefixes V_b at each digit's last position; the bucket sums
+       are S_b = V_b - V_{b-1}
+    7. sum_b b S_b, which telescopes to sum_(b < 2^15) (V_top - V_b): one
+       halving tree over those 2^15 leaves (the JAX package takes a 3-axis
+       digit grid, suffix-weighted sums and a Horner combine instead)
+  Stages 6-7 are one kernel in one launch (``bucket_reduce``,
   csrc/bucket_reduce.cu) from the scan's prefixes, the offsets and the
-  per-bucket gather indices; ``bucket_reduce_plain`` is the same composition
-  on the plain point formulas, add for add. Sorting, searchsorted, the digit
-  rewrite and the index gathers (``bucket_indices``) are data movement and
-  stay plain PyTorch, as they were XLA outside Pallas in the JAX package;
-  the scan reads its table points itself.
+  per-bucket gather indices; ``bucket_reduce_plain`` adds in the kernel's
+  order on the plain point formulas, add for add. Sorting, searchsorted,
+  the digit rewrite and the index gathers (``bucket_indices``) are data
+  movement and stay plain PyTorch, as they were XLA outside Pallas in the
+  JAX package; the scan reads its table points itself.
 """
 
 from __future__ import annotations
@@ -51,12 +52,9 @@ FIXED_BASE_THRESHOLD = 16384
 # H100's 132 SMs. Fewer, longer chunks leave SMs idle in the last wave; more,
 # shorter ones cost more chunk offsets (K4) than they save.
 SCAN_CHUNKS = 1 << 17
-_GRID = 32  # b = 2^10 u + 2^5 v + w with u, v, w < 32
-# the bucket reduction kernel's scratch: V, its grid sums and its row sums
-# (then one int, a counter)
-BR_SCRATCH_POINTS = (1 << 15) + 1 + 2 * _GRID * _GRID + 3 * _GRID
-# (add, double, suffix scan) of the reduction's plain version
-PLAIN_OPS = (cv.g1_add_plain, cv.g1_double_plain, scans.hs_scan_points_plain)
+BR_LEAVES = 256  # the bucket reduction's leaves a block
+# its scratch: one sum a block of leaves (then one int, a counter)
+BR_SCRATCH_POINTS = (1 << 15) // BR_LEAVES
 
 
 def _pow2_width(n: int) -> int:
@@ -188,111 +186,22 @@ def bucket_indices(ds, m: int):
 # ---------------------------------------------------------------------------
 
 
-def bucket_sums(U, off, slot, c, valid, add=cv.g1_add_plain):
-    """Stage 6: S_b for b in [0, 2^15] from global prefix differences:
-    V_b = U[slot_b] + off[c_b] (the chunk prefix at the last position with
-    digit <= b, plus its chunk's offset), infinity where not valid;
-    S_b = V_b - V_(b-1). Returns a (12, 2^15 + 1) Jacobian triple."""
+def bucket_reduce_plain(U, off, slot, c, valid, add=cv.g1_add_plain):
+    """Plain version of the bucket reduction (any device), in the kernel's
+    order: V_b = U[slot_b] + off[c_b] (the chunk prefix at the last position
+    with digit <= b, plus its chunk's offset), infinity where not valid; the
+    leaves L_b = V_top + (-V_b) for b < 2^15 (top = 2^15); their sum by
+    tree_reduce over (12, 128, BR_LEAVES), then over the 128 block sums.
+    Since S_b = V_b - V_(b-1) telescopes, that sum is sum_b b S_b. ``add``
+    replaces the plain add: with K2's wrapper it replays the same route on
+    K2's kernel. Returns a Jacobian triple of (12,) words."""
     Ub = tuple(u[:, slot.long()] for u in U)
-    O = tuple(o[:, c.long()] for o in off)
-    V = cv.select(valid, add(Ub, O), cv.inf_like(Ub))
-    Vprev = tuple(torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], dim=1) for v in V)
-    return add(V, cv.neg(Vprev))
-
-
-def weighted_bucket_sum(S, ops=PLAIN_OPS):
-    """Stage 7: sum_b b S_b for the signed buckets b in [0, 2^15]. With
-    b = 2^10 u + 2^5 v + w: T1[u, v] = sum_w S, T2[v, w] = sum_u S, then
-    A_u, B_v, C_w as row sums of those grids (halving trees of 32); each row
-    weighted by its index as sum_j T_j - T_0 over its suffix sums T_j
-    (sum_j T_j = sum_k (k + 1) X_k); and a Horner combine
-    2^15 S_top + 2^10 W_A + 2^5 W_B + W_C. ops = (add, double, suffix scan)."""
-    add, double, scan = ops
-    side = _GRID
-    g = tuple(c[:, : 1 << 15].reshape(FP.L, side, side, side) for c in S)  # [u, v, w]
-    first = tree_reduce(tuple(torch.stack([c, c.permute(0, 2, 3, 1)], dim=1).contiguous()
-                              for c in g), add)  # (12, 2, 32, 32): T1[u, v], T2[v, w]
-    rows = tree_reduce(tuple(
-        torch.stack([c[:, 0], c[:, 0].transpose(1, 2), c[:, 1].transpose(1, 2)], dim=1).contiguous()
-        for c in first), add)  # (12, 3, 32): A_u, B_v, C_w
-    T = scan(*rows, reverse=True)
-    ws = add(tree_reduce(T, add), cv.neg(tuple(c[..., 0].contiguous() for c in T)))  # (12, 3)
-    acc = tuple(c[:, 1 << 15 :].contiguous() for c in S)  # S_top, (12, 1)
-    for k in range(3):
-        for _ in range(5):
-            acc = double(acc)
-        acc = add(acc, tuple(c[:, k : k + 1].contiguous() for c in ws))
-    return tuple(c[:, 0] for c in acc)
-
-
-def bucket_reduce_plain(U, off, slot, c, valid, ops=PLAIN_OPS):
-    """Plain version of the bucket reduction (any device): stage 6, then
-    stage 7, on the plain point formulas and K4's plain scan. ops = (add,
-    double, suffix scan) replaces them: with the K2 and K4 wrappers it is the
-    multi-launch route the kernel replaced. Returns the Jacobian sum_b b S_b,
-    a triple of (12,) words."""
-    return weighted_bucket_sum(bucket_sums(U, off, slot, c, valid, ops[0]), ops)
-
-
-def _trees_plain(p):
-    """The kernel's trees on (12, sums, 32) points: at distance s = 16, 8,
-    .., 1, element i < s of each sum adds element i + s into its own.
-    Returns element 0 of each sum."""
-    for s in (16, 8, 4, 2, 1):
-        i = torch.arange(s, device=p[0].device)
-        low = cv.g1_add_plain(tuple(c[..., i] for c in p), tuple(c[..., i + s] for c in p))
-        p = tuple(torch.cat([lo, c[..., s:]], dim=-1) for lo, c in zip(low, p))
-    return tuple(c[..., 0] for c in p)
-
-
-def bucket_reduce_layout_plain(U, off, slot, c, valid):
-    """bucket_reduce_plain in the kernel's layout (csrc/bucket_reduce.cu):
-    which grid sum and element reads which b, which grid sums each row sum
-    reads, each element's partner at each tree and scan level, and where
-    S_top and T_0 come from. Equal to it bit for bit."""
-    dev = slot.device
-    add = cv.g1_add_plain
-    side, n1 = _GRID, _GRID * _GRID
-    # bucket_v: V_b for every b
-    Ub = tuple(x[:, slot.long()] for x in U)
-    V = cv.select(valid, add(Ub, tuple(x[:, c.long()] for x in off)), cv.inf_like(Ub))
-
-    def s_at(b):  # S_b from V_b and V_(b-1), V_(-1) infinity
-        prev = tuple(torch.where(b > 0, x[:, (b - 1).clamp(min=0)], 0) for x in V)
-        return add(tuple(x[:, b] for x in V), cv.neg(prev))
-
-    # bucket_grid: sum k < 1024 is T1[u, v] (k = 32 u + v, element w), sum
-    # 1024 + 32 v + w is T2[v, w] (element u)
-    k = torch.arange(2 * n1, device=dev)[:, None]
-    e = torch.arange(side, device=dev)[None]
-    b = torch.where(k < n1, side * k + e, n1 * e + k - n1)
-    grid = _trees_plain(tuple(x.view(FP.L, 2 * n1, side) for x in s_at(b.reshape(-1))))
-    # bucket_rows: row sum 32 row + i, element j: A_i from T1[i, j], B_i
-    # from T1[j, i], C_i from T2[j, i]
-    r = torch.arange(3 * side, device=dev)[:, None]
-    row, i = r // side, r % side
-    idx = torch.where(row == 0, side * i + e, torch.where(row == 1, side * e + i, n1 + side * e + i))
-    rows = _trees_plain(tuple(x[:, idx] for x in grid))  # (12, 96)
-    # the tail: warps 0-2 the suffix sums (lane j adds lane j + s, if any),
-    # T_0 from lane 0, the tree; warp 3's lane 0 S_top and its 5 doublings;
-    # then the Horner on one thread
-    x = tuple(t.view(FP.L, 3, side) for t in rows)
-    s = 1
-    while s < side:
-        lanes = torch.arange(side - s, device=dev)
-        low = add(tuple(t[..., lanes] for t in x), tuple(t[..., lanes + s] for t in x))
-        x = tuple(torch.cat([lo, t[..., side - s :]], dim=-1) for lo, t in zip(low, x))
-        s *= 2
-    ws = add(_trees_plain(x), cv.neg(tuple(t[..., 0] for t in x)))  # (12, 3)
-    acc = s_at(torch.tensor([1 << 15], device=dev))
-    for _ in range(5):
-        acc = cv.g1_double_plain(acc)
-    for j in range(3):
-        if j:
-            for _ in range(5):
-                acc = cv.g1_double_plain(acc)
-        acc = add(acc, tuple(t[:, j : j + 1] for t in ws))
-    return tuple(t[:, 0] for t in acc)
+    V = cv.select(valid, add(Ub, tuple(o[:, c.long()] for o in off)), cv.inf_like(Ub))
+    nl = V[0].shape[1] - 1
+    top = tuple(v[:, nl:].expand(-1, nl).contiguous() for v in V)
+    leaves = add(top, cv.neg(tuple(v[:, :nl].contiguous() for v in V)))
+    blocks = tree_reduce(tuple(x.reshape(FP.L, nl // BR_LEAVES, BR_LEAVES) for x in leaves), add)
+    return tree_reduce(blocks, add)
 
 
 def bucket_reduce(U, off, slot, c, valid):
@@ -300,10 +209,9 @@ def bucket_reduce(U, off, slot, c, valid):
     (12, 2^15 + 1)), K4's exclusive chunk offsets off (3 x (12, C)) and
     bucket_indices' slot, c (int32) and valid (bool), each (2^15 + 1,).
     CPU tensors take bucket_reduce_plain; CUDA tensors launch
-    ``kzg_bucket_v``, ``kzg_bucket_grid`` and ``kzg_bucket_rows``
-    (csrc/bucket_reduce.cu, three launches counted as ``bucket_reduce``),
-    whose output equals the plain version's word for word. Returns a
-    Jacobian triple of (12,) words."""
+    ``kzg_bucket_reduce`` (csrc/bucket_reduce.cu, one launch counted as
+    ``bucket_reduce``), whose output equals the plain version's word for
+    word. Returns a Jacobian triple of (12,) words."""
     nb = scans.N_BUCKET_SLOTS
     if any(u.shape != (FP.L, nb) for u in U) or any(t.shape != (nb,) for t in (slot, c, valid)):
         raise ValueError(f"the bucket reduction takes {nb} bucket slots")
@@ -317,11 +225,9 @@ def bucket_reduce(U, off, slot, c, valid):
     dev = slot.device
     scratch = torch.empty(BR_SCRATCH_POINTS * 3 * FP.L + 1, dtype=torch.int32, device=dev)
     out = torch.empty(3, FP.L, dtype=torch.int32, device=dev)
-    _build.launch("bucket_reduce", "kzg_bucket_v", *(t.data_ptr() for t in U + off),
-                  slot.data_ptr(), c.data_ptr(), valid.data_ptr(), scratch.data_ptr(), nb,
-                  off[0].shape[1])
-    _build.launch("bucket_reduce", "kzg_bucket_grid", scratch.data_ptr())
-    _build.launch("bucket_reduce", "kzg_bucket_rows", scratch.data_ptr(), out.data_ptr())
+    _build.launch("bucket_reduce", "kzg_bucket_reduce", *(t.data_ptr() for t in U + off),
+                  slot.data_ptr(), c.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+                  out.data_ptr(), nb, off[0].shape[1])
     return out[0], out[1], out[2]
 
 

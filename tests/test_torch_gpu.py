@@ -186,13 +186,14 @@ def test_fr_poly_kernels_match_plain(cuda, n):
 
 
 @pytest.mark.parametrize("case", ["every bucket empty", "equal sums in a tree",
-                                  "P and -P in a tree", "random"])
+                                  "P and -P in a tree", "P and -P at a block-tree level",
+                                  "P and -P in the last tree", "random"])
 def test_bucket_reduce_kernel_matches_plain(cuda, case):
-    """The bucket reduction against bucket_reduce_plain and the kernel-layout
-    emulation, bit for bit: every bucket invalid; equal partial sums meeting
-    in a T1 and in a T2 tree (the add doubles); P and -P meeting in one
-    tree (infinity); seeded words at C = 37 with infinity lanes and the
-    first buckets invalid."""
+    """The bucket reduction against bucket_reduce_plain, and against that
+    route replayed on K2's add, bit for bit: every bucket invalid; equal
+    leaves (the add doubles); P and -P meeting at a block-tree level and in
+    the last block's tree (infinity); seeded words at C = 37 with infinity
+    lanes and the first buckets invalid."""
     from kzg_torch.ops import msm
     from kzg_torch.utils.reduce_cases import BUCKET_CASES, bucket_case
 
@@ -214,4 +215,4 @@ def test_bucket_reduce_kernel_matches_plain(cuda, case):
         assert cv.g1_from_device(tuple(g[:, None] for g in got)) == [
             hm.g1_mul(hm.G1_GEN, want) if want else None]
     assert _same(got, msm.bucket_reduce_plain(*inputs))
-    assert _same(got, msm.bucket_reduce_layout_plain(*inputs))
+    assert _same(got, msm.bucket_reduce_plain(*inputs, add=cv.g1_add))

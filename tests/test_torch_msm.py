@@ -71,8 +71,9 @@ def test_scan_bit_identical_to_kzg_tpu_lax_scan():
 
 
 def test_hs_scan_bit_identical_to_kzg_tpu():
-    """The suffix sums the weighted bucket reduction takes, W = 32 over 3 rows,
-    against kzg_tpu's _hs_scan_points (one block, so bit for bit)."""
+    """Suffix sums at W = 32 over 3 rows (the JAX package's weighted bucket
+    reduction takes them), against kzg_tpu's _hs_scan_points (one block, so
+    bit for bit)."""
     import jax
 
     from kzg_tpu.ops import msm as jmsm
@@ -332,32 +333,22 @@ def test_bucket_reduce_plain_matches_host(case):
     assert _affine(got) == weighted_oracle(buckets)
 
 
-@pytest.mark.parametrize("case", ["equal sums in a tree", "P and -P in a tree"])
-def test_bucket_reduce_layout_plain_bit_identical(case):
-    """The python emulation of the kernel's layout (which sum and element
-    reads which b, the partners at each tree and scan level, where S_top and
-    T_0 come from) equals the plain version word for word."""
-    inputs = bucket_case(BUCKET_CASES[case])
-    got = msm.bucket_reduce_layout_plain(*inputs)
-    want = msm.bucket_reduce_plain(*inputs)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert _affine(got) == weighted_oracle(BUCKET_CASES[case])
-
-
 @pytest.mark.slow
 def test_bucket_reduce_plain_matches_kzg_tpu_fbs_reduce():
-    """On the same bucket sums S (stage 6 of the plain version), stage 7
-    equals kzg_tpu's _fbs_reduce (grid trees, suffix-weighted sums, Horner)
-    as a group element, and both the host oracle. Slow: the JAX reduction
-    takes 463-504 s on one CPU core, with a warm compile cache or a cold one."""
+    """kzg_tpu's _fbs_reduce (grid trees, suffix-weighted sums, Horner) on
+    bucket sums S_b = k_b G built on the host from the bucket table, against
+    the plain version (the telescoped tree) on the matching inputs: the same
+    group element, and both the host oracle. Slow: the JAX reduction takes
+    463-504 s on one CPU core, with a warm compile cache or a cold one."""
     from kzg_tpu.ops import msm as jmsm
 
     buckets = {**BUCKET_CASES["equal sums in a tree"], 0: 5, TOP: 9, TOP - 1: 2, 777: 3}
-    inputs = bucket_case(buckets)
-    S = msm.bucket_sums(*inputs)
+    S = cv.g1_to_device([hm.g1_mul(hm.G1_GEN, buckets[b]) if b in buckets else None
+                         for b in range(scans.N_BUCKET_SLOTS)], "cpu")
     want = jmsm._fbs_reduce(tuple(convert.to_jax_limbs(c) for c in S))
     want = tuple(convert.from_jax_limbs(np.asarray(w)) for w in want)
-    assert _affine(msm.weighted_bucket_sum(S)) == _affine(want) == weighted_oracle(buckets)
+    got = msm.bucket_reduce_plain(*bucket_case(buckets))
+    assert _affine(got) == _affine(want) == weighted_oracle(buckets)
 
 
 def test_bucket_reduce_checks_its_operands():
