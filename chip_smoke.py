@@ -50,7 +50,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      at most MAX_FR_MULS_PROOF Fr multiplies; its one commit launches as the
      main path's does (COMMIT_LAUNCHES).
    - batched: the commit below FIXED_BASE_THRESHOLD (n = 8192), which runs
-     the batched double-and-add MSM.
+     the batched double-and-add MSM: one K2b launch (ladder_msm) and no K2
+     double, madd or add (BATCHED_LAUNCHES, per MSM).
+   - reference size: the commit and the opening proof of a 10-coefficient
+     polynomial (the reference CLI's degree 9) against the 2^20 SRS, whose
+     first 10 points the commit takes; two MSMs, each one K2b launch and no
+     K2 launch. The proof must equal the host oracle as the 2^20 one does.
    Each commit must equal the host oracle (sum a_i s^i mod r) G1, and each
    kernel of a path must have launched in its run.
 5. replay: every logged call again at its shapes on seeded inputs, kernel
@@ -62,8 +67,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    the ceremony's fold shape, and the doubling chain (K7) at 2^16 lanes and
    16 steps; and the field multiply's probes, K1 at 2^24 Fp lanes and K2's
    doubling at 2^20 lanes (the shapes every checkout's table build has run,
-   so that two checkouts' runs compare field.cuh). Then the stage times of
-   the ceremony and of the proof.
+   so that two checkouts' runs compare field.cuh). K2's double and add,
+   which no path launches since K2b, at the batched commit's shapes: the
+   route K2b replaced (256 doubles and 256 exact madds of 8192 lanes, adds
+   of 4096, 2048, .., 1 lanes), each checked and timed, and that whole route
+   (msm_batched_plain on K2's wrappers) against K2b on the batched path's
+   inputs, bit-identical, timed in turns (K2b, route, route, K2b). Then the
+   stage times of the ceremony and of the proof.
 6. profile: one warm 2^20 commit under torch.profiler, device time by kernel;
    the commit's index gathers must take less than one 805 MB table gather
    would at the card's memory rate (the scan reads its own table points).
@@ -79,12 +89,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    (infinity)) and on seeded words at the commit's chunk count, each
    against its plain version and that route replayed on K2's add
    (bit-identical), the cases also against the host oracle (sum_b b k_b) G1.
+   Then K2b at n = 1, 2, 3, 10, 127, 128, 129 and 8192 on the exceptional
+   lanes of kzg_torch/utils/ladder_cases.py (scalars 0, 1, r - 1, 2^256 - 1,
+   2^255 + k, r + 2 and r, P and -P, equal lanes, two lanes flagged
+   infinite), each against msm_batched_plain, that route on K2's kernels
+   (bit-identical) and the host oracle.
    All after every timing: run before the paths, such checks' allocations
    moved the buffers the later paths allocate, and the window fold (K5)
    read slower for it.
-8. a line {"kernels": [...]} (the bucket reduction's entry also gives its
-   critical path, BUCKET_REDUCE_CHAIN, and its ms per point operation on
-   it), then the last line {"ok": true, "device": ...}.
+8. a line {"kernels": [...]} (the bucket reduction's and K2b's entries also
+   give their critical paths, BUCKET_REDUCE_CHAIN and ladder_chain, and the
+   ms per point operation on them), then the last line {"ok": true,
+   "device": ...}.
 
 Bounds: the larger of bytes moved / 3.35 TB/s (H100 SXM HBM3) and 32-bit
 integer multiply-adds / 16.7 T/s (132 SMs x 64 IMAD per clock x 1.98 GHz, the
@@ -118,7 +134,11 @@ operations against (2^26 - 32) / 3.35e12 s = 0.0200 ms of bytes, so
 since sum_b b S_b = 2^15 V_top - sum_(b < 2^15) V_b, an add for each valid
 V_b, 2^15 - 1 adds for the sum, one subtraction and 15 doublings: at most
 65,537 adds, 0.0350 ms of operations, against 23.9 MB read at the commit's
-C = 2^17 (0.0071 ms), whatever route its kernel takes.
+C = 2^17 (0.0071 ms), whatever route its kernel takes. The batched MSM
+(ladder_cost) needs, on the inputs of the run, for each lane not flagged
+and with k_i != 0, bitlen(k_i) - 1 doublings and popcount(k_i) - 1 mixed
+adds (the first set bit is a copy), and one add fewer than such lanes for
+the sum; it reads 128 bytes a lane (a mask byte more) and writes one point.
 """
 
 from __future__ import annotations
@@ -137,6 +157,8 @@ import time
 SEED = 20240521
 LOG_N = 20
 BATCHED_N = 8192  # below the fixed-base threshold: the batched-affine commit
+REF_N = 10  # the reference CLI's polynomials (degree 9)
+LADDER_CHECK_SIZES = (1, 2, 3, 10, 127, 128, 129, BATCHED_N)  # K2b's edge checks
 CHECK_LANES = 1 << 16  # lanes of the exceptional-case checks of phase 3
 FOLD_CHECK_LANES = 4096  # the fold's: phase 5 checks it again at 2^16 lanes
 PLAIN_CHUNK = 1 << 20  # lanes per plain call in the replays: bounds its temporaries
@@ -156,6 +178,8 @@ MAX_FR_MULS_PROOF = 4  # Fr multiply launches the proof may make
 # offsets) 4, the point kernels the reduction replaced none
 COMMIT_LAUNCHES = {"bucket_reduce": (1, 1), "hs_scan_points": (4, 4), "g1_add": (0, 0),
                    "g1_double": (0, 0)}
+# a batched MSM's launches: K2b 1, the K2 kernels it replaced none
+BATCHED_LAUNCHES = {"ladder_msm": 1, "g1_double": 0, "g1_madd": 0, "g1_add": 0}
 # the bucket reduction's dependent point operations from input to output:
 # V_b and V_top (thread 0 forms both), the leaf V_top - V_b, the block's
 # tree of 8 levels and the last block's of 7
@@ -181,6 +205,8 @@ KERNELS = {
     "fr_divide": ("kzg_torch/csrc/fr_poly.cu", "kzg_tpu/ops/poly.py:69"),
     # K2 as the MSM's bucket reduction uses it (kzg_tpu/ops/msm.py:608-686, :817)
     "bucket_reduce": ("kzg_torch/csrc/bucket_reduce.cu", "kzg_tpu/ops/pallas_curve.py:260"),
+    # K2 as the batched MSM uses it (kzg_tpu/ops/msm.py:74-85, msm_batched_affine)
+    "ladder_msm": ("kzg_torch/csrc/ladder_msm.cu", "kzg_tpu/ops/pallas_curve.py:260"),
 }
 # kernel -> its CUDA functions in the -Xptxas -v report
 DEVICE_FUNCTIONS = {
@@ -198,6 +224,7 @@ DEVICE_FUNCTIONS = {
     "fr_evaluate": ["fr_eval_kernel"],
     "fr_divide": ["fr_eval_kernel", "fr_div_top_kernel", "fr_div_down_kernel"],
     "bucket_reduce": ["bucket_reduce_kernel"],
+    "ladder_msm": ["ladder_msm_kernel"],
 }
 SRS_CHUNK = 1 << 16  # the chunk bench.py passes to the JAX package's ceremony
 DBL_STEPS = 16
@@ -205,6 +232,7 @@ CEREMONY = f"G1 ceremony 2^{LOG_N} (chunk 2^16)"
 MAIN = f"fixed-base commit 2^{LOG_N} (table build + first commit)"
 PROOF = f"opening proof 2^{LOG_N} (evaluate + generate_proof)"
 BATCHED = f"batched-affine commit {BATCHED_N}"
+REF = f"reference-size commit and proof {REF_N}"
 # the kernels each path must launch
 PATH_KERNELS = {
     CEREMONY: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "g1_madd", "gen_fold"},
@@ -212,7 +240,8 @@ PATH_KERNELS = {
            "hs_scan_points", "bucket_reduce"},
     PROOF: {"mont_mul_fr", "scan_buckets", "hs_scan_points", "bucket_reduce", "fr_evaluate",
             "fr_divide"},
-    BATCHED: {"mont_mul_fr", "g1_double", "g1_add", "g1_madd"},
+    BATCHED: {"mont_mul_fr", "ladder_msm"},
+    REF: {"ladder_msm", "fr_evaluate", "fr_divide"},
 }
 
 
@@ -502,6 +531,45 @@ def reduce_cost(inputs):
             adds * G1_ADD_OPS + 15 * G1_DBL_OPS)
 
 
+def _live_scalars(k, mask):
+    """The scalars of the lanes not flagged in mask, as python ints."""
+    from kzg_torch.ops import limbs as lb
+
+    ks = lb.words_to_ints(k)
+    return ks if mask is None else [v for v, m in zip(ks, mask.tolist()) if not m]
+
+
+def ladder_cost(k, mask):
+    """(bytes, operations) of one batched MSM on these scalars: (x, y) and
+    the scalar words (and the mask) read once, one point written; and the
+    point operations sum_i k_i P_i needs, whatever route a kernel takes: for
+    each lane not flagged and with k_i mod r != 0, bitlen - 1 doublings and
+    popcount - 1 mixed adds (its first set bit is a copy of P_i), then one
+    add fewer than such lanes."""
+    from kzg_torch.utils import hostmath as hm
+
+    live = [v % hm.R for v in _live_scalars(k, mask)]
+    live = [v for v in live if v]
+    n = k.shape[1]
+    ops = (sum(v.bit_length() - 1 for v in live) * G1_DBL_OPS
+           + sum(bin(v).count("1") - 1 for v in live) * G1_MADD_OPS
+           + max(len(live) - 1, 0) * G1_ADD_OPS)
+    return n * (2 * FP_BYTES + 32 + (mask is not None)) + 3 * FP_BYTES, ops
+
+
+def ladder_chain(k, mask=None) -> dict:
+    """K2b's dependent point operations from input to output on these
+    scalars: a double and a madd a step from the highest set bit of any lane
+    down (the exceptional doublings aside), then the block's tree and the
+    last block's levels."""
+    from kzg_torch.ops import msm
+
+    steps = max((v.bit_length() for v in _live_scalars(k, mask)), default=0)
+    blocks = -(-k.shape[1] // msm.LADDER_LANES)
+    return {"doubles": steps, "madds": steps,
+            "adds": msm.LADDER_LANES.bit_length() - 1 + (blocks - 1).bit_length()}
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version, exceptional cases
 # ---------------------------------------------------------------------------
@@ -731,6 +799,8 @@ def logging_calls():
         (polyops, "synthetic_divide", lambda coeffs, root: ("fr_divide", tuple(coeffs.shape))),
         (msm, "bucket_reduce", lambda U, off, slot, c, valid: (
             "bucket_reduce", tuple(U[0].shape), tuple(off[0].shape))),
+        (msm, "msm_batched_affine", lambda pts, scalars, inf_mask=None: (
+            "ladder_msm", tuple(scalars.shape), inf_mask is not None)),
     ]
     originals = []
 
@@ -782,6 +852,16 @@ def check_commit_launches(label, launches):
         if not lo <= got <= hi:
             raise AssertionError(f"{label}: {got} {name} launches on its one commit "
                                  f"(expected {lo} to {hi})")
+
+
+def check_batched_launches(label, launches, msms: int):
+    """A path with ``msms`` batched MSMs launched K2b once for each and K2's
+    double, madd and add never."""
+    for name, per_msm in BATCHED_LAUNCHES.items():
+        got = launches.get(name, 0)
+        if got != per_msm * msms:
+            raise AssertionError(f"{label}: {got} {name} launches on its {msms} batched MSMs "
+                                 f"(expected {per_msm * msms})")
 
 
 def phase_paths(ctx):
@@ -931,14 +1011,46 @@ def phase_paths(ctx):
     small = Polynomial.from_ints(coeffs[:ns], device=ctx.device)
     t_small, cs, small_launches, small_calls = drive(ctx, BATCHED,
                                                      lambda: small.commit(small_srs))
+    check_batched_launches(BATCHED, small_launches, 1)
     if cs.affine() != oracle(ns):
         raise AssertionError(f"the {ns}-point commit differs from the host oracle")
     small_times = sorted(ctx.time_once(lambda: small.commit(small_srs))[0] for _ in range(3))
     print(f"  commit {ns}: equals the host oracle; median of 3 warm runs "
           f"{small_times[1]:.2f} ms ({small_times})", flush=True)
 
+    # the reference CLI's size: a 10-coefficient commit and its proof
+    # against the 2^20 SRS (the commit takes its first 10 points)
+    ref = Polynomial.from_ints(coeffs[:REF_N], device=ctx.device)
+
+    def ref_proof():
+        ev = ref.evaluate(x)
+        return ev, ev.generate_proof(ref, srs)
+
+    def ref_path():
+        return ref.commit(srs), ref_proof()
+
+    t_ref, (c_ref, (ev_ref, pf_ref)), ref_launches, ref_calls = drive(ctx, REF, ref_path)
+    check_batched_launches(REF, ref_launches, 2)
+    p_ref = sum(c * p for c, p in zip(coeffs[:REF_N], powers)) % hm.R
+    y_ref = 0
+    for co in reversed(coeffs[:REF_N]):
+        y_ref = (y_ref * x_eval + co) % hm.R
+    if c_ref.affine() != hm.g1_mul(hm.G1_GEN, p_ref):
+        raise AssertionError(f"the {REF_N}-coefficient commit differs from the host oracle")
+    if ev_ref.result.to_int() != y_ref:
+        raise AssertionError(f"the {REF_N}-coefficient P(x) differs from the host's Horner value")
+    want = (p_ref - y_ref) * pow(secret - x_eval, -1, hm.R) % hm.R
+    if pf_ref.affine() != hm.g1_mul(hm.G1_GEN, want):
+        raise AssertionError(f"the {REF_N}-coefficient proof differs from the host oracle")
+    ref_commit = sorted(ctx.time_once(lambda: ref.commit(srs))[0] for _ in range(3))
+    ref_proofs = sorted(ctx.time_once(ref_proof)[0] for _ in range(3))
+    print(f"  {REF}: {t_ref:.2f} ms first (commit and proof); commit median of 3 warm runs "
+          f"{ref_commit[1]:.2f} ms ({ref_commit}), proof {ref_proofs[1]:.2f} ms "
+          f"({ref_proofs}); commit, P(x) and proof equal the host oracles", flush=True)
+
     paths = {CEREMONY: (cer_launches, cer_calls), MAIN: (launches, calls),
-             PROOF: (proof_launches, proof_calls), BATCHED: (small_launches, small_calls)}
+             PROOF: (proof_launches, proof_calls), BATCHED: (small_launches, small_calls),
+             REF: (ref_launches, ref_calls)}
     return paths, {"ladder_srs_ms": t_srs, "ladder_to_affine_ms": t_aff,
                    "ceremony_first_ms": t_cer, "ceremony_ms": cer_warm[1],
                    "ceremony_runs_ms": cer_warm, "tables_ms": t_tab,
@@ -947,7 +1059,10 @@ def phase_paths(ctx):
                    "peak_gib_tables_and_first_commit": peak_path, "peak_gib_warm_commits": peak_commit,
                    "first_proof_ms": t_proof, "proof_ms": proof_times[1],
                    "proof_runs_ms": proof_times, "stages": stages,
-                   "batched_first_commit_ms": t_small, "batched_commit_ms": small_times[1]
+                   "batched_first_commit_ms": t_small, "batched_commit_ms": small_times[1],
+                   "batched_commit_runs_ms": small_times, "ref_first_ms": t_ref,
+                   "ref_commit_ms": ref_commit[1], "ref_commit_runs_ms": ref_commit,
+                   "ref_proof_ms": ref_proofs[1], "ref_proof_runs_ms": ref_proofs,
                    }, lambda: poly.commit(srs)
 
 
@@ -1171,6 +1286,14 @@ def replay_case(ctx, spec):
         inputs = reduce_case(ctx, spec[2][1])
         return (lambda: msm.bucket_reduce(*inputs), lambda: msm.bucket_reduce_plain(*inputs),
                 *reduce_cost(inputs))
+    if name == "ladder_msm":
+        from kzg_torch.ops import msm
+
+        n = shape[1]
+        x, y, k = ctx.rand_field(FP, n), ctx.rand_field(FP, n), ctx.rand_field(FR, n)
+        mask = torch.arange(n, device=ctx.device) % 61 == 5 if spec[2] else None
+        return (lambda: msm.msm_batched_affine((x, y), k, mask),
+                lambda: msm.msm_batched_plain((x, y), k, mask), *ladder_cost(k, mask))
     if name == "dbl_chain":
         steps = spec[2]
         n = math.prod(shape[1:])
@@ -1298,6 +1421,94 @@ def phase_off_path(ctx):
     return out, extra
 
 
+def adjacent_tree_widths(n: int) -> list:
+    """The lanes of each add a tree_reduce_adjacent over n lanes makes."""
+    widths = []
+    while n > 1:
+        widths.append(n // 2)
+        n -= n // 2
+    return widths
+
+
+def phase_batched_route(ctx, calls):
+    """The route K2b replaced, at the batched path's MSM shape (n lanes):
+    K2's double and exact madd at n lanes (256 calls each) and its add at
+    each level's width, each checked against its plain version and timed,
+    summed per kernel (K2's double and add rows: no path launches them);
+    then that route whole (msm_batched_plain on K2's wrappers) against K2b
+    on seeded inputs, bit-identical, timed by CUDA events over each call
+    (the route's host gaps included) in turns K2b, route, route, K2b.
+    Returns the rows, the times and K2b's chain on those inputs."""
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops import msm
+    from kzg_torch.ops.field import FP, FR
+
+    n = next(spec for spec in calls if spec[0] == "ladder_msm")[1][1]
+    rows = {}
+    for name, specs in (("g1_double", [("g1_double", (FP.L, n))] * 256),
+                        ("g1_madd", [("g1_madd", (FP.L, n), False)] * 256),
+                        ("g1_add", [("g1_add", (FP.L, h)) for h in adjacent_tree_widths(n)])):
+        t = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "err": 0,
+             "calls": len(specs), "launches": 0}
+        for spec, count in collections.Counter(specs).items():
+            kern, plain, n_bytes, n_ops = replay_case(ctx, spec)
+            plain_ms, want = ctx.time_once(plain)
+            t["err"] = max(t["err"], check(ctx, f"{spec[0]} {spec[1:]} x{count}", kern(), want))
+            t["ms"] += ctx.time_cuda(kern) * count
+            t["plain_ms"] += plain_ms * count
+            t["bytes"] += n_bytes * count
+            t["ops"] += n_ops * count
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["ops"])
+        t["shape"] = f"the batched route at n = {n}: {len(specs)} calls"
+        print(f"  {name} at the batched route's shapes: {len(specs)} calls, {t['ms']:.4f} ms "
+              f"kernel, {t['plain_ms']:.1f} ms plain, bound {t['bound_ms']:.4f} ms", flush=True)
+        rows[name] = t
+    x, y, k = ctx.rand_field(FP, n), ctx.rand_field(FP, n), ctx.rand_field(FR, n)
+    kern = lambda: msm.msm_batched_affine((x, y), k)  # noqa: E731
+    route = lambda: msm.msm_batched_plain((x, y), k, add=cv.g1_add, madd=cv.g1_madd,  # noqa: E731
+                                          double=cv.g1_double)
+    check(ctx, f"ladder_msm against the K2 route it replaced (n={n})", kern(), route())
+    t = [ctx.time_cuda(f, reps=3) for f in (kern, route, route, kern)]
+    chain = ladder_chain(k)
+    ops = sum(chain.values())
+    print(f"  ladder_msm {t[0]:.4f} / {t[3]:.4f} ms against the K2 route {t[1]:.4f} / "
+          f"{t[2]:.4f} ms (n={n}); chain {chain}, {(t[0] + t[3]) / 2 / ops * 1e3:.2f} us a "
+          f"point operation", flush=True)
+    times = {"ladder_ms": [t[0], t[3]], "k2_route_ms": [t[1], t[2]], "chain": chain,
+             "k2_madd_at_batched_shape": {f: v for f, v in rows.pop("g1_madd").items()
+                                          if f != "err"}}
+    return rows, times, chain
+
+
+def phase_ladder_edges(ctx):
+    """K2b on the exceptional lanes of kzg_torch/utils/ladder_cases.py at
+    n = 1, 2, 3, 10, 127, 128, 129 and 8192 (points base_i G from K2's
+    ladder), unmasked and, from 10 lanes, with lanes 3 and n - 1 flagged
+    infinite: against msm_batched_plain and that route on K2's kernels
+    (bit-identical), and against the host oracle (sum base_i k_i) G1."""
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops import msm
+    from kzg_torch.utils import hostmath as hm
+    from kzg_torch.utils.ladder_cases import edge_lanes, oracle, scalar_words
+
+    rnd = random.Random(SEED + 2)
+    for n in LADDER_CHECK_SIZES:
+        base = [rnd.randrange(2, hm.R) for _ in range(n)]
+        (x, y), _ = cv.to_affine(cv.mul_scalar_affine(cv.g1_gen_affine(ctx.device, n),
+                                                      scalar_words(base, ctx.device)))
+        ks = [rnd.randrange(hm.R) for _ in range(n)]
+        mask = edge_lanes(x, y, base, ks)
+        k = scalar_words(ks, ctx.device)
+        for m in (None, mask) if n >= 10 else (None,):
+            label = f"ladder_msm (n={n}{', lanes 3 and n - 1 infinite' if m is not None else ''})"
+            got = msm.msm_batched_affine((x, y), k, m)
+            check(ctx, label, got, msm.msm_batched_plain((x, y), k, m))
+            check(ctx, f"{label}, the same route on K2's kernels", got, msm.msm_batched_plain(
+                (x, y), k, m, add=cv.g1_add, madd=cv.g1_madd, double=cv.g1_double))
+            if cv.g1_from_device(tuple(c[:, None] for c in got)) != oracle(base, ks, m):
+                raise AssertionError(f"{label}: differs from the host oracle")
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "kzg_torch", "csrc")):
@@ -1349,6 +1560,11 @@ def main() -> int:
     print("== the kernels no path launches (K8, K7, the Fr inversion), and the multiply's probes",
           flush=True)
     off_path, times["off_path_other_shapes"] = phase_off_path(ctx)
+    print("== K2's batched route, the one K2b replaced, at the batched commit's shapes",
+          flush=True)
+    route_rows, times["batched_route"], ladder_chain_run = phase_batched_route(
+        ctx, paths[BATCHED][1])
+    off_path.update(route_rows)
     print("== the streaming scan, both modes, at the main path's scan shape", flush=True)
     off_path["scan_madd"], times["scan_modes"] = phase_stream_scan(ctx, paths[MAIN][1])
     # last, so that no timing above runs after the profiler
@@ -1359,13 +1575,15 @@ def main() -> int:
     print("== the bucket reduction, exceptional cases", flush=True)
     spec = next(spec for spec in paths[MAIN][1] if spec[0] == "bucket_reduce")
     phase_reduce_edges(ctx, spec[2][1])
+    print("== the batched MSM (K2b), exceptional cases", flush=True)
+    phase_ladder_edges(ctx)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # each kernel's numbers come from the first of these paths that runs it;
         # its launches on every path stand beside them
-        label = next((lb for lb in (MAIN, CEREMONY, PROOF, BATCHED) if name in per_path[lb]),
-                     None)
+        label = next((lb for lb in (MAIN, CEREMONY, PROOF, BATCHED, REF)
+                      if name in per_path[lb]), None)
         if label is None and name not in off_path:
             return fail(f"{name} was launched on no path")
         t = per_path[label][name] if label is not None else off_path[name]
@@ -1387,6 +1605,13 @@ def main() -> int:
                   f"{BUCKET_REDUCE_CHAIN['adds']} dependent adds and "
                   f"{BUCKET_REDUCE_CHAIN['doubles']} doublings, {t['ms'] / chain * 1e3:.1f} us a "
                   f"point operation", flush=True)
+        if name == "ladder_msm":
+            ops = sum(ladder_chain_run.values())
+            kernels[-1]["critical_path"] = dict(ladder_chain_run, ms_per_op=t["ms"] / ops)
+            print(f"  ladder_msm: {t['ms']:.4f} ms over a critical path of "
+                  f"{ladder_chain_run['doubles']} doublings, {ladder_chain_run['madds']} madds "
+                  f"and {ladder_chain_run['adds']} adds, {t['ms'] / ops * 1e3:.2f} us a point "
+                  f"operation", flush=True)
     times["gc_ms_by_path"] = ctx.path_gc_ms
     print(json.dumps({"slice_ms": times, "card": card,
                       "paths": {lb: {k: {f: v for f, v in t.items() if f != "err"}

@@ -92,15 +92,6 @@ __device__ __forceinline__ void block_tree(jac_t* pts, int half, int t) {
   __syncthreads();
 }
 
-__device__ __forceinline__ jac_t load_jac_cg(const jac_t* p) {
-  const u32* w = reinterpret_cast<const u32*>(p);
-  jac_t r;
-  u32* o = reinterpret_cast<u32*>(&r);
-#pragma unroll
-  for (int j = 0; j < 36; j++) o[j] = __ldcg(w + j);
-  return r;
-}
-
 __global__ void __launch_bounds__(kLeaves) bucket_reduce_kernel(BucketIn in, jac_t* scratch,
                                                                 int* counter, jac_t* out) {
   extern __shared__ jac_t br_smem[];

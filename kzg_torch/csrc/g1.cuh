@@ -1,6 +1,7 @@
 // G1 Jacobian group law over Fp for sm_90a: device functions shared by the
-// point kernels (g1_point.cu), the bucket scan (scan_madd.cu) and the point
-// prefix scan (hs_scan.cu).
+// point kernels (g1_point.cu), the bucket scan (scan_madd.cu), the point
+// prefix scan (hs_scan.cu), the bucket reduction (bucket_reduce.cu) and the
+// batched-affine MSM (ladder_msm.cu).
 //
 // The formulas are term for term those of kzg_tpu/ops/curve.py
 // (JacobianCurve.double / add / madd) and kzg_tpu/ops/pallas_curve.py
@@ -26,7 +27,7 @@ struct jac_t {
 __device__ __forceinline__ fp_t fmul(const fp_t& a, const fp_t& b) { return mont_mul<12>(a, b); }
 __device__ __forceinline__ fp_t fsqr(const fp_t& a) { return mont_sqr<12>(a); }
 
-// How the point formulas multiply (the Ops of g1_double and g1_add).
+// How the point formulas multiply (the Ops of g1_double, g1_add and g1_madd).
 // FieldInline, the default: every multiply and square is its own copy of
 // the carry chains (16 copies of about 640 instructions an add), more than
 // an SM's instruction caches hold, so a warp that runs adds one after
@@ -128,22 +129,23 @@ __device__ __forceinline__ jac_t g1_add(const jac_t& p, const jac_t& q) {
 // madd-2007-bl core (Z2 = 1): 8M + 3S (I as (2H)^2 and Z3 as 2H Z1; the
 // published form is 7M + 4S). Returns the formula's output and the
 // two equality tests the exceptional lanes need.
+template <class Ops = FieldInline>
 __device__ __forceinline__ jac_t g1_madd_core(const jac_t& p, const fp_t& x2, const fp_t& y2,
                                               bool& same_x, bool& same_y) {
-  const fp_t Z1Z1 = fsqr(p.z);
-  const fp_t U2 = fmul(x2, Z1Z1);
-  const fp_t S2 = fmul(y2, fmul(p.z, Z1Z1));
+  const fp_t Z1Z1 = Ops::sqr(p.z);
+  const fp_t U2 = Ops::mul(x2, Z1Z1);
+  const fp_t S2 = Ops::mul(y2, Ops::mul(p.z, Z1Z1));
   const fp_t H = fsub(U2, p.x);
   const fp_t H2 = fdbl(H);
-  const fp_t I = fsqr(H2);
-  const fp_t J = fmul(H, I);
+  const fp_t I = Ops::sqr(H2);
+  const fp_t J = Ops::mul(H, I);
   const fp_t dS = fsub(S2, p.y);
   const fp_t r = fdbl(dS);
-  const fp_t V = fmul(p.x, I);
+  const fp_t V = Ops::mul(p.x, I);
   jac_t out;
-  out.x = fsub(fsub(fsqr(r), J), fdbl(V));
-  out.y = fsub(fmul(r, fsub(V, out.x)), fdbl(fmul(p.y, J)));
-  out.z = fmul(H2, p.z);
+  out.x = fsub(fsub(Ops::sqr(r), J), fdbl(V));
+  out.y = fsub(Ops::mul(r, fsub(V, out.x)), fdbl(Ops::mul(p.y, J)));
+  out.z = Ops::mul(H2, p.z);
   same_x = fzero(H);
   same_y = fzero(dS);
   return out;
@@ -151,10 +153,11 @@ __device__ __forceinline__ jac_t g1_madd_core(const jac_t& p, const fp_t& x2, co
 
 // Exact mixed add: P == Q doubles, P == -Q gives infinity, P = infinity
 // gives (x2, y2, ONE_MONT) (curve.py:163-169). (x2, y2) must not be infinity.
+template <class Ops = FieldInline>
 __device__ __forceinline__ jac_t g1_madd(const jac_t& p, const fp_t& x2, const fp_t& y2) {
   bool same_x, same_y;
-  jac_t out = g1_madd_core(p, x2, y2, same_x, same_y);
-  if (same_x && same_y) out = g1_double(p);
+  jac_t out = g1_madd_core<Ops>(p, x2, y2, same_x, same_y);
+  if (same_x && same_y) out = g1_double<Ops>(p);
   out = jsel(same_x && !same_y, jac_inf(), out);
   jac_t q;
   q.x = x2;
@@ -166,10 +169,11 @@ __device__ __forceinline__ jac_t g1_madd(const jac_t& p, const fp_t& x2, const f
 // The 11-mul mixed add without the inline doubling (_madd_pt_fast): a lane
 // with P == Q (and P finite) sets needs_double and its output is not the sum;
 // every other lane equals g1_madd's output bit for bit.
+template <class Ops = FieldInline>
 __device__ __forceinline__ jac_t g1_madd_fast(const jac_t& p, const fp_t& x2, const fp_t& y2,
                                               bool& needs_double) {
   bool same_x, same_y;
-  jac_t out = g1_madd_core(p, x2, y2, same_x, same_y);
+  jac_t out = g1_madd_core<Ops>(p, x2, y2, same_x, same_y);
   out = jsel(same_x && !same_y, jac_inf(), out);
   const bool z1_inf = jac_is_inf(p);
   jac_t q;
@@ -195,6 +199,17 @@ __device__ __forceinline__ void store_jac(u32* x, u32* y, u32* z, long long stri
   store<12>(x, stride, i, p.x);
   store<12>(y, stride, i, p.y);
   store<12>(z, stride, i, p.z);
+}
+
+// A point another block wrote before a fence: read from L2 (ld.global.cg),
+// past this SM's L1.
+__device__ __forceinline__ jac_t load_jac_cg(const jac_t* p) {
+  const u32* w = reinterpret_cast<const u32*>(p);
+  jac_t r;
+  u32* o = reinterpret_cast<u32*>(&r);
+#pragma unroll
+  for (int j = 0; j < 36; j++) o[j] = __ldcg(w + j);
+  return r;
 }
 
 }  // namespace kzg

@@ -59,6 +59,7 @@ SIGNATURES = {
     "kzg_fr_div_top": [_P, _I, _P, _P, _P],
     "kzg_fr_div_down": [_P, _I, _P, _P, _I, _P, _P, _P],
     "kzg_bucket_reduce": [_P] * 11 + [_I, _I, _P],
+    "kzg_ladder_msm": [_P] * 6 + [_I, _P],
 }
 
 _lib = None

@@ -360,15 +360,17 @@ def scalar_bit(k: torch.Tensor, i: int) -> torch.Tensor:
     return ((k[i // 32] >> (i % 32)) & 1) == 1
 
 
-def mul_scalar_affine(p_affine, k: torch.Tensor, nbits: int = 256):
+def mul_scalar_affine(p_affine, k: torch.Tensor, nbits: int = 256, double=None, madd=None):
     """[k] p for affine base points: MSB-first double-and-add with mixed adds
-    (curve.py:228-245). p_affine (x, y) (12, n); k (8, n) standard-form Fr
+    (curve.py:228-245), on K2's double and exact madd unless ``double`` and
+    ``madd`` are given. p_affine (x, y) (12, n); k (8, n) standard-form Fr
     words. Lanes must not be infinite (callers mask them)."""
+    double, madd = double or g1_double, madd or g1_madd
     x, y = p_affine
     acc = inf_like((x, x, x))
     for i in range(nbits - 1, -1, -1):
-        acc = g1_double(acc)
-        acc = select(scalar_bit(k, i), g1_madd(acc, (x, y)), acc)
+        acc = double(acc)
+        acc = select(scalar_bit(k, i), madd(acc, (x, y)), acc)
     return acc
 
 

@@ -3,8 +3,10 @@
 Counterpart of ``kzg_tpu/ops/msm.py``. Two paths give the same group element:
 
 * ``msm_batched_affine``: every point through one 256-step double-and-add
-  ladder at once, then a halving tree of adds (the JAX package's path below
-  its Pippenger threshold).
+  ladder at once, then a tree of adds in the JAX package's pairing (its path
+  below its Pippenger threshold): one kernel in one launch (K2b,
+  csrc/ladder_msm.cu); ``msm_batched_plain`` runs the same order on the
+  plain point formulas, add for add.
 * ``msm_g1_fixed``: the fixed-base MSM against precomputed window tables
   (``precompute_g1_tables``), the commit path at n >= FIXED_BASE_THRESHOLD,
   in the stages of the JAX package's signed-digit pipeline:
@@ -39,7 +41,7 @@ import torch
 from . import _build
 from . import curve as cv
 from . import scans
-from .field import FP
+from .field import FP, FR
 from .limbs import MASK16
 
 FB_WINDOW_BITS = 16
@@ -55,6 +57,7 @@ SCAN_CHUNKS = 1 << 17
 BR_LEAVES = 256  # the bucket reduction's leaves a block
 # its scratch: one sum a block of leaves (then one int, a counter)
 BR_SCRATCH_POINTS = (1 << 15) // BR_LEAVES
+LADDER_LANES = 128  # K2b's lanes a block (csrc/ladder_msm.cu kLadderThreads)
 
 
 def _pow2_width(n: int) -> int:
@@ -77,13 +80,67 @@ def tree_reduce(pts, add=None):
     return tuple(c[..., 0] for c in pts)
 
 
-def msm_batched_affine(pts_affine, scalars: torch.Tensor, inf_mask=None):
-    """sum_i scalars_i P_i: pts_affine (x, y) (12, n), scalars (8, n)
-    standard-form Fr words; lanes flagged in inf_mask contribute nothing."""
-    prods = cv.mul_scalar_affine(pts_affine, scalars)
+def tree_reduce_adjacent(pts, add=cv.g1_add_plain):
+    """Sum Jacobian points (12, n) along the lanes in the JAX package's
+    tree_reduce pairing: at distance s = 1, 2, 4, .., lane j adds lane
+    j + s, j a multiple of 2 s. The JAX package pads the lanes to a power of
+    two with infinity, where its add returns lane j unchanged; here such a
+    lane is kept as it is, the same words. Returns a triple of (12,) words."""
+    while pts[0].shape[-1] > 1:
+        h = pts[0].shape[-1] // 2
+        evens = tuple(c[:, 0::2] for c in pts)
+        summed = add(tuple(c[:, :h].contiguous() for c in evens),
+                     tuple(c[:, 1::2].contiguous() for c in pts))
+        pts = tuple(torch.cat([a, c[:, h:]], dim=1) for a, c in zip(summed, evens))
+    return tuple(c[:, 0] for c in pts)
+
+
+def msm_batched_plain(pts_affine, scalars: torch.Tensor, inf_mask=None, add=cv.g1_add_plain,
+                      madd=cv.g1_madd_plain, double=cv.g1_double_plain):
+    """Plain version of K2b (any device), in the kernel's order: every lane's
+    256-step ladder (cv.mul_scalar_affine), infinity on the lanes flagged in
+    inf_mask, then tree_reduce_adjacent. That is the JAX package's
+    msm_batched_affine add for add, so the words equal its. ``add``,
+    ``madd`` and ``double`` replace the plain formulas: with K2's wrappers
+    they replay on the card the route K2b replaced (256 doubles, 256 madds
+    and ceil(log2 n) adds, one launch each). n >= 1."""
+    prods = cv.mul_scalar_affine(pts_affine, scalars, double=double, madd=madd)
     if inf_mask is not None:
         prods = cv.select(inf_mask, cv.inf_like(prods), prods)
-    return tree_reduce(prods)
+    return tree_reduce_adjacent(prods, add)
+
+
+def msm_batched_affine(pts_affine, scalars: torch.Tensor, inf_mask=None):
+    """K2b, sum_i scalars_i P_i: pts_affine (x, y) (12, n) affine Montgomery
+    words, scalars (8, n) standard-form Fr words, inf_mask an (n,) bool
+    tensor or None; flagged lanes contribute nothing. CPU tensors take
+    msm_batched_plain; CUDA tensors launch ``kzg_ladder_msm``
+    (csrc/ladder_msm.cu, one launch counted as ``ladder_msm``), whose output
+    equals the plain version's word for word. Returns a Jacobian triple of
+    (12,) words."""
+    x, y = pts_affine
+    n = scalars.shape[-1]
+    if x.shape != (FP.L, n) or y.shape != x.shape or scalars.shape != (FR.L, n):
+        raise ValueError(f"the batched MSM takes (12, n) coordinates and (8, n) scalars, got "
+                         f"{tuple(x.shape)}, {tuple(y.shape)} and {tuple(scalars.shape)}")
+    if inf_mask is not None and inf_mask.shape != (n,):
+        raise ValueError(f"inf_mask must have shape ({n},)")
+    if n == 0:
+        return tuple(torch.zeros(FP.L, dtype=torch.int32, device=x.device) for _ in range(3))
+    if x.device.type == "cpu":
+        return msm_batched_plain(pts_affine, scalars, inf_mask)
+    x, y, scalars = x.contiguous(), y.contiguous(), scalars.contiguous()
+    _build.check_cuda(x, y, scalars)
+    if inf_mask is not None and (inf_mask.dtype != torch.bool or inf_mask.device != x.device
+                                 or not inf_mask.is_contiguous()):
+        raise ValueError("inf_mask must be a contiguous bool tensor on the operands' device")
+    blocks = -(-n // LADDER_LANES)
+    scratch = torch.empty(blocks * 3 * FP.L + 1, dtype=torch.int32, device=x.device)
+    out = torch.empty(3, FP.L, dtype=torch.int32, device=x.device)
+    _build.launch("ladder_msm", "kzg_ladder_msm", x.data_ptr(), y.data_ptr(), scalars.data_ptr(),
+                  None if inf_mask is None else inf_mask.data_ptr(), scratch.data_ptr(),
+                  out.data_ptr(), n)
+    return out[0], out[1], out[2]
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 """The batched-affine commit (n = 8192, below the fixed-base threshold) in
 one checkout, timed alone: median of 7 warm runs (host clock after a sync),
 then again after one bucket reduction at the commit's shapes (2^15 + 1
-buckets, C = 2^17).
+buckets, C = 2^17); then the reference CLI's size, a 10-coefficient commit
+and its opening proof against the same SRS, medians of 7 warm runs each.
+Each line also gives the kernel launches of one run.
 
     python3 scripts/batched_commit_probe.py [CHECKOUT]
 
@@ -22,7 +24,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from kzg_torch import Polynomial  # noqa: E402
+from kzg_torch import Polynomial, Scalar  # noqa: E402
 from kzg_torch.ops import _build, msm  # noqa: E402
 from kzg_torch.ops import curve as cv  # noqa: E402
 from kzg_torch.ops.field import FR  # noqa: E402
@@ -30,6 +32,7 @@ from kzg_torch.trusted_setup import DeviceSRS  # noqa: E402
 from kzg_torch.utils import hostmath as hm  # noqa: E402
 
 N = 8192
+REF_N = 10  # the reference CLI's polynomials (degree 9)
 RUNS = 7
 
 
@@ -46,16 +49,39 @@ def main() -> int:
     srs = DeviceSRS(gx.contiguous(), gy.contiguous(), None, [], N)
     poly = Polynomial.from_ints([rnd.randrange(hm.R) for _ in range(N)], device=ctx.device)
 
-    def median() -> float:
-        return sorted(ctx.time_once(lambda: poly.commit(srs))[0] for _ in range(RUNS))[RUNS // 2]
+    def launches(fn) -> dict:
+        _build.reset_launches()
+        fn()
+        ctx.sync()
+        return dict(_build.LAUNCHES)
 
-    poly.commit(srs)
-    before = median()
+    def median(fn) -> float:
+        return sorted(ctx.time_once(fn)[0] for _ in range(RUNS))[RUNS // 2]
+
+    def commit():
+        return poly.commit(srs)
+
+    small = Polynomial.from_ints([rnd.randrange(hm.R) for _ in range(REF_N)], device=ctx.device)
+    x = Scalar(rnd.randrange(hm.R))
+
+    def small_commit():
+        return small.commit(srs)
+
+    def small_proof():
+        return small.evaluate(x).generate_proof(small, srs)
+
+    counts = launches(commit)
+    before = median(commit)
     msm.bucket_reduce(*cs.reduce_case(ctx, 1 << 17))
     ctx.sync()
-    after = median()
+    after = median(commit)
     print(f"{ROOT.name}: batched {N} commit, median of {RUNS} warm runs {before:.2f} ms, "
-          f"{after:.2f} ms after a bucket reduction", flush=True)
+          f"{after:.2f} ms after a bucket reduction; launches {counts}", flush=True)
+    for label, fn in ((f"{REF_N}-coefficient commit", small_commit),
+                      (f"{REF_N}-coefficient proof", small_proof)):
+        counts = launches(fn)
+        print(f"{ROOT.name}: {label}, median of {RUNS} warm runs {median(fn):.2f} ms; "
+              f"launches {counts}", flush=True)
     return 0
 
 

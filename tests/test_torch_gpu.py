@@ -216,3 +216,64 @@ def test_bucket_reduce_kernel_matches_plain(cuda, case):
             hm.g1_mul(hm.G1_GEN, want) if want else None]
     assert _same(got, msm.bucket_reduce_plain(*inputs))
     assert _same(got, msm.bucket_reduce_plain(*inputs, add=cv.g1_add))
+
+
+def _ladder_case(cuda, n, seed):
+    """n points base_i G on the card (K2's ladder, then to_affine) from
+    seeded base_i, seeded scalars below r, then the exceptional lanes of
+    ladder_cases.edge_lanes. Returns (x, y, k, mask, base, ks)."""
+    from kzg_torch.utils.ladder_cases import edge_lanes, scalar_words
+
+    rng = np.random.default_rng(seed)
+    base = [int(v) + 2 for v in rng.integers(0, 1 << 62, size=n)]
+    (x, y), _ = cv.to_affine(cv.mul_scalar_affine(cv.g1_gen_affine(cuda, n),
+                                                  scalar_words(base, cuda)))
+    ks = [int.from_bytes(rng.bytes(32), "little") % hm.R for _ in range(n)]
+    mask = edge_lanes(x, y, base, ks)
+    return x, y, scalar_words(ks, cuda), mask, base, ks
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 8192, 16383, 65536])
+def test_ladder_msm_kernel_matches_plain(cuda, n):
+    """K2b against msm_batched_plain and against that route replayed on K2's
+    kernels, bit for bit, and against the host oracle, with and without the
+    mask, on the exceptional lanes of ladder_cases.edge_lanes: a partial
+    block (1, 2, 127), one whole block (128), a block and one lane (129),
+    the 8192-point commit's 64 blocks, 128 blocks less a lane, and 512
+    blocks (the last block's levels take several sums a thread)."""
+    from kzg_torch.ops import _build, msm
+    from kzg_torch.utils.ladder_cases import oracle
+
+    x, y, k, mask, base, ks = _ladder_case(cuda, n, 70 + n % 97)
+    for m in (None, mask):
+        before = _build.LAUNCHES["ladder_msm"]
+        got = msm.msm_batched_affine((x, y), k, m)
+        assert _build.LAUNCHES["ladder_msm"] == before + 1
+        assert _same(got, msm.msm_batched_plain((x, y), k, m))
+        assert _same(got, msm.msm_batched_plain((x, y), k, m, add=cv.g1_add, madd=cv.g1_madd,
+                                                double=cv.g1_double))
+        assert cv.g1_from_device(tuple(c[:, None] for c in got)) == oracle(base, ks, m)
+
+
+def test_batched_commit_launches_the_ladder_only(cuda):
+    """An 8192-coefficient commit against an 8192-point DeviceSRS (below the
+    fixed-base threshold) launches K2b once and K2 never, and equals the
+    host oracle (sum a_i k_i) G for the SRS points k_i G."""
+    from kzg_torch import DeviceSRS, Polynomial
+    from kzg_torch.ops import _build
+    from kzg_torch.utils.ladder_cases import scalar_words
+
+    n = 8192
+    rng = np.random.default_rng(80)
+    base = [int(v) + 2 for v in rng.integers(0, 1 << 62, size=n)]
+    (x, y), _ = cv.to_affine(cv.mul_scalar_affine(cv.g1_gen_affine(cuda, n),
+                                                  scalar_words(base, cuda)))
+    coeffs = [int.from_bytes(rng.bytes(32), "little") % hm.R for _ in range(n)]
+    poly = Polynomial.from_ints(coeffs, device=cuda)
+    srs = DeviceSRS(x.contiguous(), y.contiguous(), None, [], n)
+    _build.reset_launches()
+    c = poly.commit(srs)
+    launches = dict(_build.LAUNCHES)
+    assert launches.get("ladder_msm") == 1
+    assert not any(launches.get(k) for k in ("g1_double", "g1_madd", "g1_add"))
+    assert c.affine() == hm.g1_mul(hm.G1_GEN, sum(a * b for a, b in zip(coeffs, base)) % hm.R)
