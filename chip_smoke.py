@@ -70,10 +70,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    so that two checkouts' runs compare field.cuh). K2's double and add,
    which no path launches since K2b, at the batched commit's shapes: the
    route K2b replaced (256 doubles and 256 exact madds of 8192 lanes, adds
-   of 4096, 2048, .., 1 lanes), each checked and timed, and that whole route
-   (msm_batched_plain on K2's wrappers) against K2b on the batched path's
-   inputs, bit-identical, timed in turns (K2b, route, route, K2b). Then the
-   stage times of the ceremony and of the proof.
+   of 4096, 2048, .., 1 lanes), each checked and timed
+   (scripts/batched_commit_probe.py times that whole route against K2b).
+   Then the stage times of the ceremony and of the proof.
 6. profile: one warm 2^20 commit under torch.profiler, device time by kernel;
    the commit's index gathers must take less than one 805 MB table gather
    would at the card's memory rate (the scan reads its own table points).
@@ -89,11 +88,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    (infinity)) and on seeded words at the commit's chunk count, each
    against its plain version and that route replayed on K2's add
    (bit-identical), the cases also against the host oracle (sum_b b k_b) G1.
-   Then K2b at n = 1, 2, 3, 10, 127, 128, 129 and 8192 on the exceptional
-   lanes of kzg_torch/utils/ladder_cases.py (scalars 0, 1, r - 1, 2^256 - 1,
+   Then K2b at the paths' n = 10 and 8192 and at 129 (a partial block) on
+   the exceptional lanes of kzg_torch/utils/ladder_cases.py (scalars 0, 1, r - 1, 2^256 - 1,
    2^255 + k, r + 2 and r, P and -P, equal lanes, two lanes flagged
-   infinite), each against msm_batched_plain, that route on K2's kernels
-   (bit-identical) and the host oracle.
+   infinite; unmasked too), each against msm_batched_plain, that route on
+   K2's kernels (bit-identical) and the host oracle. The other sizes (1, 2,
+   127, 128, 16383, 65536) are tests/test_torch_gpu.py's.
    All after every timing: run before the paths, such checks' allocations
    moved the buffers the later paths allocate, and the window fold (K5)
    read slower for it.
@@ -135,10 +135,16 @@ since sum_b b S_b = 2^15 V_top - sum_(b < 2^15) V_b, an add for each valid
 V_b, 2^15 - 1 adds for the sum, one subtraction and 15 doublings: at most
 65,537 adds, 0.0350 ms of operations, against 23.9 MB read at the commit's
 C = 2^17 (0.0071 ms), whatever route its kernel takes. The batched MSM
-(ladder_cost) needs, on the inputs of the run, for each lane not flagged
-and with k_i != 0, bitlen(k_i) - 1 doublings and popcount(k_i) - 1 mixed
-adds (the first set bit is a copy), and one add fewer than such lanes for
-the sum; it reads 128 bytes a lane (a mask byte more) and writes one point.
+(ladder_cost) needs, on the inputs of the run's lanes not flagged and with
+k_i != 0, the fewer operations of two methods: the lanes' own ladders
+(bitlen(k_i) - 1 doublings and popcount(k_i) - 1 mixed adds a lane, the
+first set bit a copy, then one add fewer than such lanes), or the bucket
+method (bucket_ops) at its best window c: for each c-bit window, a mixed
+add for each non-zero digit but a bucket's first, the running sum over the
+buckets from the highest digit down, and c doublings and an add a window
+below the top one. At the batched path's 8192 random scalars the buckets
+win (about 0.095 ms, at c = 10); at a lane or two, the ladder. It reads 128
+bytes a lane (a mask byte more) and writes one point.
 """
 
 from __future__ import annotations
@@ -158,7 +164,7 @@ SEED = 20240521
 LOG_N = 20
 BATCHED_N = 8192  # below the fixed-base threshold: the batched-affine commit
 REF_N = 10  # the reference CLI's polynomials (degree 9)
-LADDER_CHECK_SIZES = (1, 2, 3, 10, 127, 128, 129, BATCHED_N)  # K2b's edge checks
+LADDER_CHECK_SIZES = (REF_N, 129, BATCHED_N)  # K2b's edge checks: the paths' n, a partial block
 CHECK_LANES = 1 << 16  # lanes of the exceptional-case checks of phase 3
 FOLD_CHECK_LANES = 4096  # the fold's: phase 5 checks it again at 2^16 lanes
 PLAIN_CHUNK = 1 << 20  # lanes per plain call in the replays: bounds its temporaries
@@ -301,6 +307,7 @@ class Ctx:
         self.gc_ms = 0.0  # host time inside the garbage collector (gc_callback)
         self.path_gc_ms = {}
         self._gc_start = None
+        self.ladder_chains = {}  # K2b's replayed call -> ladder_chain on its inputs
 
     def gc_callback(self, phase, info):
         """gc.callbacks hook: adds up the time of every collection."""
@@ -539,21 +546,51 @@ def _live_scalars(k, mask):
     return ks if mask is None else [v for v, m in zip(ks, mask.tolist()) if not m]
 
 
+def bucket_ops(live: list, c: int) -> int:
+    """IMADs of sum_i k_i P_i over the non-zero scalars live by the bucket
+    method with c-bit windows, counted on these digits: in each window a
+    mixed add for each non-zero digit but the first into its bucket, then
+    the running sum from the highest digit d down (an add for each non-empty
+    bucket below d, d - 1 adds for the total); then from the top window
+    down, c doublings and an add a window."""
+    import numpy as np
+
+    if not live:
+        return 0
+    top = max(v.bit_length() for v in live)
+    windows = -(-top // c)
+    bits = np.unpackbits(np.frombuffer(b"".join(v.to_bytes(32, "little") for v in live),
+                                       dtype=np.uint8).reshape(len(live), 32),
+                         axis=1, bitorder="little").astype(np.int64)
+    bits = np.pad(bits, ((0, 0), (0, max(windows * c - 256, 0))))[:, :windows * c]
+    digits = (bits.reshape(len(live), windows, c) << np.arange(c)).sum(axis=2)
+    madds = adds = 0
+    for w in range(windows):
+        used = np.flatnonzero(np.bincount(digits[:, w])[1:]) + 1
+        if used.size:
+            madds += int((digits[:, w] != 0).sum()) - used.size
+            adds += used.size - 1 + int(used[-1]) - 1
+    adds += windows - 1
+    return madds * G1_MADD_OPS + adds * G1_ADD_OPS + c * (windows - 1) * G1_DBL_OPS
+
+
 def ladder_cost(k, mask):
     """(bytes, operations) of one batched MSM on these scalars: (x, y) and
     the scalar words (and the mask) read once, one point written; and the
-    point operations sum_i k_i P_i needs, whatever route a kernel takes: for
-    each lane not flagged and with k_i mod r != 0, bitlen - 1 doublings and
-    popcount - 1 mixed adds (its first set bit is a copy of P_i), then one
-    add fewer than such lanes."""
+    point operations sum_i k_i P_i needs on the lanes not flagged and with
+    k_i mod r != 0, whatever route a kernel takes: the fewer of the lanes'
+    own ladders (bitlen - 1 doublings and popcount - 1 mixed adds a lane,
+    its first set bit a copy of P_i, then one add fewer than such lanes)
+    and the bucket method at its best window, c = 1 to 16 (bucket_ops)."""
     from kzg_torch.utils import hostmath as hm
 
     live = [v % hm.R for v in _live_scalars(k, mask)]
     live = [v for v in live if v]
     n = k.shape[1]
-    ops = (sum(v.bit_length() - 1 for v in live) * G1_DBL_OPS
-           + sum(bin(v).count("1") - 1 for v in live) * G1_MADD_OPS
-           + max(len(live) - 1, 0) * G1_ADD_OPS)
+    ladder = (sum(v.bit_length() - 1 for v in live) * G1_DBL_OPS
+              + sum(bin(v).count("1") - 1 for v in live) * G1_MADD_OPS
+              + max(len(live) - 1, 0) * G1_ADD_OPS)
+    ops = min([ladder] + [bucket_ops(live, c) for c in range(1, 17)])
     return n * (2 * FP_BYTES + 32 + (mask is not None)) + 3 * FP_BYTES, ops
 
 
@@ -1292,6 +1329,7 @@ def replay_case(ctx, spec):
         n = shape[1]
         x, y, k = ctx.rand_field(FP, n), ctx.rand_field(FP, n), ctx.rand_field(FR, n)
         mask = torch.arange(n, device=ctx.device) % 61 == 5 if spec[2] else None
+        ctx.ladder_chains[spec] = ladder_chain(k, mask)
         return (lambda: msm.msm_batched_affine((x, y), k, mask),
                 lambda: msm.msm_batched_plain((x, y), k, mask), *ladder_cost(k, mask))
     if name == "dbl_chain":
@@ -1434,14 +1472,9 @@ def phase_batched_route(ctx, calls):
     """The route K2b replaced, at the batched path's MSM shape (n lanes):
     K2's double and exact madd at n lanes (256 calls each) and its add at
     each level's width, each checked against its plain version and timed,
-    summed per kernel (K2's double and add rows: no path launches them);
-    then that route whole (msm_batched_plain on K2's wrappers) against K2b
-    on seeded inputs, bit-identical, timed by CUDA events over each call
-    (the route's host gaps included) in turns K2b, route, route, K2b.
-    Returns the rows, the times and K2b's chain on those inputs."""
-    from kzg_torch.ops import curve as cv
-    from kzg_torch.ops import msm
-    from kzg_torch.ops.field import FP, FR
+    summed per kernel (K2's double and add rows: no path launches them).
+    Returns the double and add rows, and the madd's totals."""
+    from kzg_torch.ops.field import FP
 
     n = next(spec for spec in calls if spec[0] == "ladder_msm")[1][1]
     rows = {}
@@ -1463,28 +1496,14 @@ def phase_batched_route(ctx, calls):
         print(f"  {name} at the batched route's shapes: {len(specs)} calls, {t['ms']:.4f} ms "
               f"kernel, {t['plain_ms']:.1f} ms plain, bound {t['bound_ms']:.4f} ms", flush=True)
         rows[name] = t
-    x, y, k = ctx.rand_field(FP, n), ctx.rand_field(FP, n), ctx.rand_field(FR, n)
-    kern = lambda: msm.msm_batched_affine((x, y), k)  # noqa: E731
-    route = lambda: msm.msm_batched_plain((x, y), k, add=cv.g1_add, madd=cv.g1_madd,  # noqa: E731
-                                          double=cv.g1_double)
-    check(ctx, f"ladder_msm against the K2 route it replaced (n={n})", kern(), route())
-    t = [ctx.time_cuda(f, reps=3) for f in (kern, route, route, kern)]
-    chain = ladder_chain(k)
-    ops = sum(chain.values())
-    print(f"  ladder_msm {t[0]:.4f} / {t[3]:.4f} ms against the K2 route {t[1]:.4f} / "
-          f"{t[2]:.4f} ms (n={n}); chain {chain}, {(t[0] + t[3]) / 2 / ops * 1e3:.2f} us a "
-          f"point operation", flush=True)
-    times = {"ladder_ms": [t[0], t[3]], "k2_route_ms": [t[1], t[2]], "chain": chain,
-             "k2_madd_at_batched_shape": {f: v for f, v in rows.pop("g1_madd").items()
-                                          if f != "err"}}
-    return rows, times, chain
+    return rows, {f: v for f, v in rows.pop("g1_madd").items() if f != "err"}
 
 
 def phase_ladder_edges(ctx):
     """K2b on the exceptional lanes of kzg_torch/utils/ladder_cases.py at
-    n = 1, 2, 3, 10, 127, 128, 129 and 8192 (points base_i G from K2's
-    ladder), unmasked and, from 10 lanes, with lanes 3 and n - 1 flagged
-    infinite: against msm_batched_plain and that route on K2's kernels
+    the paths' n = 10 and 8192 and at 129 (a partial block; points base_i G
+    from K2's ladder), unmasked and with lanes 3 and n - 1 flagged infinite:
+    against msm_batched_plain and that route on K2's kernels
     (bit-identical), and against the host oracle (sum base_i k_i) G1."""
     from kzg_torch.ops import curve as cv
     from kzg_torch.ops import msm
@@ -1499,7 +1518,7 @@ def phase_ladder_edges(ctx):
         ks = [rnd.randrange(hm.R) for _ in range(n)]
         mask = edge_lanes(x, y, base, ks)
         k = scalar_words(ks, ctx.device)
-        for m in (None, mask) if n >= 10 else (None,):
+        for m in (None, mask):
             label = f"ladder_msm (n={n}{', lanes 3 and n - 1 infinite' if m is not None else ''})"
             got = msm.msm_batched_affine((x, y), k, m)
             check(ctx, label, got, msm.msm_batched_plain((x, y), k, m))
@@ -1562,8 +1581,7 @@ def main() -> int:
     off_path, times["off_path_other_shapes"] = phase_off_path(ctx)
     print("== K2's batched route, the one K2b replaced, at the batched commit's shapes",
           flush=True)
-    route_rows, times["batched_route"], ladder_chain_run = phase_batched_route(
-        ctx, paths[BATCHED][1])
+    route_rows, times["k2_madd_at_batched_shape"] = phase_batched_route(ctx, paths[BATCHED][1])
     off_path.update(route_rows)
     print("== the streaming scan, both modes, at the main path's scan shape", flush=True)
     off_path["scan_madd"], times["scan_modes"] = phase_stream_scan(ctx, paths[MAIN][1])
@@ -1606,6 +1624,8 @@ def main() -> int:
                   f"{BUCKET_REDUCE_CHAIN['doubles']} doublings, {t['ms'] / chain * 1e3:.1f} us a "
                   f"point operation", flush=True)
         if name == "ladder_msm":
+            spec = next(spec for spec in paths[label][1] if spec[0] == name)
+            ladder_chain_run = ctx.ladder_chains[spec]
             ops = sum(ladder_chain_run.values())
             kernels[-1]["critical_path"] = dict(ladder_chain_run, ms_per_op=t["ms"] / ops)
             print(f"  ladder_msm: {t['ms']:.4f} ms over a critical path of "

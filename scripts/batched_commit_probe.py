@@ -4,7 +4,11 @@ one checkout, timed alone: median of 7 warm runs (host clock after a sync),
 then again after one bucket reduction at the commit's shapes (2^15 + 1
 buckets, C = 2^17); then the reference CLI's size, a 10-coefficient commit
 and its opening proof against the same SRS, medians of 7 warm runs each.
-Each line also gives the kernel launches of one run.
+Each line also gives the kernel launches of one run. Last, the batched MSM
+(K2b, one launch) against the route it replaced (msm_batched_plain on K2's
+double, madd and add: 525 launches at n = 8192) on seeded inputs at
+n = 8192: bit-identical, then timed by CUDA events over each call (the
+route's host gaps included) in turns K2b, route, route, K2b.
 
     python3 scripts/batched_commit_probe.py [CHECKOUT]
 
@@ -27,7 +31,7 @@ import chip_smoke as cs  # noqa: E402
 from kzg_torch import Polynomial, Scalar  # noqa: E402
 from kzg_torch.ops import _build, msm  # noqa: E402
 from kzg_torch.ops import curve as cv  # noqa: E402
-from kzg_torch.ops.field import FR  # noqa: E402
+from kzg_torch.ops.field import FP, FR  # noqa: E402
 from kzg_torch.trusted_setup import DeviceSRS  # noqa: E402
 from kzg_torch.utils import hostmath as hm  # noqa: E402
 
@@ -82,6 +86,18 @@ def main() -> int:
         counts = launches(fn)
         print(f"{ROOT.name}: {label}, median of {RUNS} warm runs {median(fn):.2f} ms; "
               f"launches {counts}", flush=True)
+    if not hasattr(msm, "msm_batched_plain"):
+        return 0  # a checkout from before K2b
+    x, y, ks = ctx.rand_field(FP, N), ctx.rand_field(FP, N), ctx.rand_field(FR, N)
+    kern = lambda: msm.msm_batched_affine((x, y), ks)  # noqa: E731
+    route = lambda: msm.msm_batched_plain((x, y), ks, add=cv.g1_add,  # noqa: E731
+                                          madd=cv.g1_madd, double=cv.g1_double)
+    cs.check(ctx, f"ladder_msm against the K2 route it replaced (n={N})", kern(), route())
+    t = [ctx.time_cuda(f, reps=3) for f in (kern, route, route, kern)]
+    chain = cs.ladder_chain(ks)
+    print(f"{ROOT.name}: ladder_msm {t[0]:.4f} / {t[3]:.4f} ms against the K2 route "
+          f"{t[1]:.4f} / {t[2]:.4f} ms (n={N}); chain {chain}, "
+          f"{(t[0] + t[3]) / 2 / sum(chain.values()) * 1e3:.2f} us a point operation", flush=True)
     return 0
 
 

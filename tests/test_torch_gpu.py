@@ -233,12 +233,12 @@ def _ladder_case(cuda, n, seed):
     return x, y, scalar_words(ks, cuda), mask, base, ks
 
 
-@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 8192, 16383, 65536])
+@pytest.mark.parametrize("n", [1, 2, 3, 127, 128, 129, 8192, 16383, 65536])
 def test_ladder_msm_kernel_matches_plain(cuda, n):
     """K2b against msm_batched_plain and against that route replayed on K2's
     kernels, bit for bit, and against the host oracle, with and without the
     mask, on the exceptional lanes of ladder_cases.edge_lanes: a partial
-    block (1, 2, 127), one whole block (128), a block and one lane (129),
+    block (1, 2, 3, 127), one whole block (128), a block and one lane (129),
     the 8192-point commit's 64 blocks, 128 blocks less a lane, and 512
     blocks (the last block's levels take several sums a thread)."""
     from kzg_torch.ops import _build, msm

@@ -40,13 +40,15 @@ def _affine(p):
     return cv.g1_from_device(tuple(c.reshape(FP.L, 1) for c in p))
 
 
-@pytest.mark.parametrize("n,masked", [(3, False), (10, True)])
+@pytest.mark.parametrize("n,masked", [(3, False),
+                                      pytest.param(10, True, marks=pytest.mark.slow)])
 def test_ladder_plain_bit_identical_to_kzg_tpu(n, masked):
     """msm_batched_plain against kzg_tpu's msm_batched_affine on G1 (run
     eagerly: one compile of its ladder and tree), word for word: n = 3 (two
     equal lanes and a scalar 0; the JAX tree pads to 4) unmasked, and n =
     10 on every exceptional lane of edge_lanes with lanes 3 and 9 flagged
-    infinite."""
+    infinite (slow: about 64 s with a cold JAX cache; the host oracle holds
+    the same lanes in test_ladder_plain_matches_host)."""
     from kzg_tpu.ops import msm as jmsm
     from kzg_tpu.ops.curve import G1
 
@@ -106,6 +108,25 @@ def test_tree_reduce_adjacent_follows_the_jax_pairing(n):
         want.append([(j, j + s) for j in range(0, n - s, 2 * s)])
         s *= 2
     assert seen == want and int(out[0][0]) == 0
+
+
+def test_ladder_cost_counts_the_cheaper_of_ladder_and_buckets():
+    """chip_smoke.py's bound for K2b counts what sum_i k_i P_i needs: one
+    lane of scalar 11 (0b1011) by its ladder, 3 doublings and 2 madds (the
+    buckets need 3 doublings and 3 adds); 64 lanes of scalar 1 by one
+    bucket, 63 madds (the ladders' tree needs 63 adds); a flagged lane and a
+    scalar r count nothing. bucket_ops at c = 2 on the scalars 6 and 7
+    (digits (2, 1) and (3, 1)): 1 madd in the top window's bucket, 1 + 2
+    adds for the bottom window's running sum, 2 doublings and 1 add."""
+    import chip_smoke as cs
+
+    assert cs.ladder_cost(scalar_words([11], "cpu"), None)[1] == (
+        3 * cs.G1_DBL_OPS + 2 * cs.G1_MADD_OPS)
+    mask = torch.zeros(66, dtype=torch.bool)
+    mask[0] = True
+    nbytes, ops = cs.ladder_cost(scalar_words([5] + [1] * 64 + [hm.R], "cpu"), mask)
+    assert ops == 63 * cs.G1_MADD_OPS and nbytes == 66 * (2 * 48 + 32 + 1) + 3 * 48
+    assert cs.bucket_ops([6, 7], 2) == cs.G1_MADD_OPS + 4 * cs.G1_ADD_OPS + 2 * cs.G1_DBL_OPS
 
 
 def test_msm_batched_affine_checks_operands():
