@@ -8,16 +8,20 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every kernel of kzg_torch/csrc, compiled with nvcc (one process per
    source, in parallel) into build/kzg_torch_kernels/; each kernel's
-   registers a thread, spills and shared memory from -Xptxas -v.
+   registers a thread, spills and shared memory from -Xptxas -v, and the
+   window fold's (K5) launch shape: threads and dynamic shared memory a
+   block, resident blocks an SM.
 3. kernels: each kernel against its plain PyTorch version on the card on
    seeded inputs with the exceptional cases (the multiply on every pair of
    p - 1, 0, 1 and R mod p; P == Q, P == -Q and infinity lanes, an odd
    C < 64 streaming scan with a P == Q step, every K4 mode; for the fused
    scan digit 0, absent digits, a run across chunks, a chunk of one digit
    and P == Q / P == -Q at a chunk's start, also against the streaming path
-   it replaced; for the window fold a zero digit in every window position,
-   an all-zero scalar, k = r - 1 and a lane whose partial sum equals its
-   next table entry, so that the exact madd doubles; the doubling chain at
+   it replaced; for the window fold the case table of
+   kzg_torch/utils/fold_cases.py: a zero digit in every window position,
+   an all-zero scalar, k = r - 1 and lanes whose partial sum equals their
+   next table entry, so that the exact madd doubles, one of them alone in
+   its warp and three in another; the doubling chain at
    1, 5 and 16 steps and in windows; the batched inversion in both fields at
    n = 1, 2, a partial run in a partial block, all-zero input, zeros at run
    and block boundaries and the values 1, p - 1 and R mod p, where every
@@ -415,36 +419,15 @@ def hs_plain(ctx, pts, reverse: bool, exclusive: bool):
     return tuple(torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], -1) for c in out)
 
 
-def collide_sum() -> int:
-    """S = 0x74 2^248 - r, below 2^248: a lane with S's bytes in windows 0-30
-    and 0x74 in window 31 reaches the partial sum S G just as it meets the
-    entry T[31][0x74] = (0x74 2^248 mod r) G = S G, so the exact madd
-    doubles; the lane's value is 2 S G."""
-    from kzg_torch.utils import hostmath as hm
-
-    return 0x74 * (1 << 248) - hm.R
-
-
 def fold_digits(ctx, n: int):
-    """(32, n) int32 window digits, seeded, with the fold's exceptional lanes
-    first when n >= 35: lane w < 32 has digit 0 in window w, lane 32 is the
-    all-zero scalar, lane 33 is k = r - 1, and lane 34 the doubling lane of
-    collide_sum()."""
-    torch = ctx.torch
-    from kzg_torch.ops import genmul
-    from kzg_torch.ops.field import FR
-    from kzg_torch.utils import hostmath as hm
+    """(32, n) int32 window digits with the fold's exceptional lanes first
+    (kzg_torch/utils/fold_cases.py: a doubling lane, k = 0, k = r - 1, a
+    zero digit in each window, a warp with three doubling lanes), the rest
+    uniform from a seed the run's generator draws."""
+    from kzg_torch.utils import fold_cases
 
-    d = torch.randint(0, 256, (32, n), dtype=torch.int32, device=ctx.device, generator=ctx.gen)
-    if n < 35:
-        return d
-    d[torch.arange(32, device=ctx.device), torch.arange(32, device=ctx.device)] = 0
-    d[:, 32] = 0
-    d[:, 33] = genmul._digits8(FR.tensor([hm.R - 1], ctx.device, mont=False))[:, 0].to(torch.int32)
-    collide = collide_sum()
-    d[:, 34] = torch.tensor([(collide >> (8 * w)) & 0xFF for w in range(31)] + [0x74],
-                            dtype=torch.int32, device=ctx.device)
-    return d
+    seed = int(ctx.torch.randint(0, 1 << 31, (1,), generator=ctx.gen, device=ctx.device))
+    return fold_cases.fold_digits(n, seed, ctx.device)
 
 
 def scan_case(ctx, rows: int, m: int, C: int):
@@ -618,7 +601,6 @@ def phase_kernels(ctx):
     from kzg_torch.ops import field as fld
     from kzg_torch.ops import scans
     from kzg_torch.ops.field import FP, FR
-    from kzg_torch.utils import hostmath as hm
 
     n = CHECK_LANES
     for F in (FP, FR):
@@ -676,14 +658,15 @@ def phase_kernels(ctx):
 
     # K5 / K8 on a fold with every exceptional lane, K7 at 1, 5 and 16 steps
     from kzg_torch.ops import genmul
+    from kzg_torch.utils import fold_cases
 
     tables = genmul._build_tables(ctx.device)  # not cached: the ceremony path builds its own
     digits = fold_digits(ctx, FOLD_CHECK_LANES)
     got = genmul.gen_fold(*tables, digits)
-    check(ctx, f"gen_fold (n={FOLD_CHECK_LANES}, zero digits / k = 0 / r - 1 / a doubling)",
+    check(ctx, f"gen_fold (n={FOLD_CHECK_LANES}, zero digits / k = 0 / r - 1 / doubling lanes)",
           got, genmul.gen_fold_plain(*tables, digits.long()))
-    want = cv.g1_from_device(tuple(c[:, 32:35] for c in got))
-    if want != [None, hm.g1_mul(hm.G1_GEN, hm.R - 1), hm.g1_mul(hm.G1_GEN, 2 * collide_sum())]:
+    lanes = [0, 1, 2, 3, 35]  # a doubling lane, k = 0, r - 1, a zero digit, a doubling warp
+    if cv.g1_from_device(tuple(c[:, lanes] for c in got)) != fold_cases.oracle(digits, lanes):
         raise AssertionError("gen_fold: the exceptional lanes differ from the host oracle")
     xs, ys = gathered_entries(ctx, tables, digits)
     check(ctx, f"fold_entries (W=32, C={FOLD_CHECK_LANES})", genmul.fold_entries(xs, ys), got)
@@ -1565,6 +1548,12 @@ def main() -> int:
     missing = sorted({f for fns in DEVICE_FUNCTIONS.values() for f in fns} - set(usage))
     if missing:
         return fail(f"no -Xptxas -v report for {missing}")
+    from kzg_torch.ops import genmul
+
+    fold_shape = genmul.gen_fold_shape()
+    print(f"  gen_fold_kernel launch: {fold_shape['threads']} threads a block, "
+          f"{fold_shape['smem_bytes']} bytes of dynamic smem a block, "
+          f"{fold_shape['blocks_per_sm']} blocks an SM", flush=True)
 
     ctx = Ctx(torch, device)
     gc.callbacks.append(ctx.gc_callback)
@@ -1616,6 +1605,8 @@ def main() -> int:
                                for f in DEVICE_FUNCTIONS[name]),
             "launches_by_path": {lb: paths[lb][0].get(name, 0) for lb in paths},
         })
+        if name == "gen_fold":
+            kernels[-1]["launch"] = fold_shape
         if name == "bucket_reduce":
             chain = sum(BUCKET_REDUCE_CHAIN.values())
             kernels[-1]["critical_path"] = dict(BUCKET_REDUCE_CHAIN, ms_per_op=t["ms"] / chain)

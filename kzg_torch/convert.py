@@ -17,8 +17,10 @@ from .trusted_setup import DeviceSRS
 from .utils.device import resolve_device
 
 
-def from_jax_limbs(limbs, device="cpu") -> torch.Tensor:
-    """(2L, ...) uint32 16-bit limbs -> (L, ...) int32 words."""
+def from_jax_limbs(limbs, device=None) -> torch.Tensor:
+    """(2L, ...) uint32 16-bit limbs -> (L, ...) int32 words on ``device``
+    (the card unless asked for the CPU)."""
+    device = resolve_device(device)
     a = np.asarray(limbs, dtype=np.uint32)
     if a.shape[0] % 2 or a.max(initial=0) > 0xFFFF:
         raise ValueError("expected an even number of 16-bit limbs")

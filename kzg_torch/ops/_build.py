@@ -53,6 +53,7 @@ SIGNATURES = {
     "kzg_hs_scan_offsets": [_P] * 9 + [_I, _I, _I, _I, _P],
     "kzg_hs_scan_apply": [_P] * 9 + [_I, _I, _I, _I, _I, _P],
     "kzg_gen_fold": [_P] * 6 + [_I, _P],
+    "kzg_gen_fold_shape": [_P],
     "kzg_fold_entries": [_P] * 5 + [_I, _I, _P],
     "kzg_dbl_chain": [_P] * 6 + [_I, _I, _I, _I, _P],
     "kzg_fr_eval": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
@@ -141,10 +142,11 @@ def _demangle(name: str) -> str:
     return ident
 
 
-def ptxas_usage() -> dict:
-    """Per kernel, from the build's ``-Xptxas -v`` log: registers a thread,
-    spill stores and loads (bytes), static shared memory (bytes)."""
-    log = library_path().with_suffix(".ptxas.txt")
+def ptxas_usage(log: Path | None = None) -> dict:
+    """Per kernel, from the build's ``-Xptxas -v`` log (or another such
+    log): registers a thread, spill stores and loads (bytes), static shared
+    memory (bytes)."""
+    log = log or library_path().with_suffix(".ptxas.txt")
     usage, current = {}, None
     for line in log.read_text().splitlines() if log.exists() else []:
         m = re.search(r"Compiling entry function '(\w+)'", line)

@@ -131,7 +131,7 @@ def test_jax_state_converts_both_ways():
 
     vals = [0, 1, hm.P - 1, 0xDEADBEEF << 300]
     limbs = JFP.many_to_limbs(vals)
-    words = convert.from_jax_limbs(limbs)
+    words = convert.from_jax_limbs(limbs, "cpu")
     assert torch.equal(words, FP.tensor(vals, "cpu"))
     assert np.array_equal(convert.to_jax_limbs(words), limbs)
     pts = [hm.g1_mul(hm.G1_GEN, k) for k in (2, 3)]
@@ -139,6 +139,18 @@ def test_jax_state_converts_both_ways():
                                JFP.many_to_limbs([p[1] for p in pts]), device="cpu")
     assert len(srs) == 2
     assert torch.equal(srs.g1_x, FP.tensor([p[0] for p in pts], "cpu"))
+
+
+def test_from_jax_limbs_runs_on_the_card_unless_asked():
+    """Like every entry point, from_jax_limbs takes the card when no device
+    is given, and raises where there is none; the CPU only when asked."""
+    limbs = np.zeros((2 * FP.L, 3), np.uint32)
+    if torch.cuda.is_available():
+        assert convert.from_jax_limbs(limbs).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.from_jax_limbs(limbs)
+    assert convert.from_jax_limbs(limbs, "cpu").device.type == "cpu"
 
 
 def test_import_pulls_in_neither_jax_nor_kzg_tpu():

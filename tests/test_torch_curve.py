@@ -69,7 +69,7 @@ def _to_jax(p):
 
 
 def _from_jax(p):
-    return tuple(convert.from_jax_limbs(np.asarray(c)) for c in p)
+    return tuple(convert.from_jax_limbs(np.asarray(c), "cpu") for c in p)
 
 
 def _assert_same(got, want):

@@ -188,12 +188,12 @@ def test_mul_bit_identical_to_kzg_tpu(name):
     xs = _values(F, 61, 8)
     ys = _values(F, 61, 9)[::-1]
     ja, jb = JF.many_to_limbs(xs), JF.many_to_limbs(ys)
-    a, b = convert.from_jax_limbs(ja), convert.from_jax_limbs(jb)
+    a, b = convert.from_jax_limbs(ja, "cpu"), convert.from_jax_limbs(jb, "cpu")
     assert torch.equal(a, F.tensor(xs, "cpu"))
     want = np.asarray(JF.mul(ja, jb))
     got = F.mul(a, b)
     assert np.array_equal(convert.to_jax_limbs(got), want)
-    assert torch.equal(got, convert.from_jax_limbs(want))
+    assert torch.equal(got, convert.from_jax_limbs(want, "cpu"))
 
 
 def _ptx_chains(L):

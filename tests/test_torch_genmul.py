@@ -14,6 +14,7 @@ from kzg_torch import convert
 from kzg_torch.ops import curve as cv
 from kzg_torch.ops import genmul
 from kzg_torch.ops.field import FP, FR
+from kzg_torch.utils import fold_cases as fc
 from kzg_torch.utils import hostmath as hm
 
 # eight lanes: zero, a lone digit in window 16, digit 0 in window 0, k = r - 1,
@@ -83,16 +84,56 @@ def test_fold_bit_identical_to_kzg_tpu_mul_gen():
     jtables = tuple(jnp.asarray(convert.to_jax_limbs(t)) for t in (tx, ty))
     want = jgm.mul_gen(jcv.G1, jcv.fr_to_device(KS, batch=True), tables=jtables)
     for g, w in zip(got, want):
-        assert torch.equal(g, convert.from_jax_limbs(np.asarray(w)))
+        assert torch.equal(g, convert.from_jax_limbs(np.asarray(w), "cpu"))
     assert cv.g1_from_device(got) == [hm.g1_mul(hm.G1_GEN, k) if k else None for k in KS]
+    digits = genmul._digits8(FR.tensor(KS, "cpu", mont=False))
+    for g, s in zip(got, genmul.gen_fold_staged_plain(tx, ty, digits, threads=32)):
+        assert torch.equal(g, s)
+
+
+def test_fold_cases_hold_their_exceptional_lanes():
+    """The case table's lanes are what they claim: each doubling lane's
+    partial sum after windows 0-30 is its window-31 entry (the madd
+    doubles), lane 1 is k = 0 and lane 2 k = r - 1, lane 3 + w has digit 0
+    in window w; and the plain fold gives the host oracle on them."""
+    tx, ty = _tables()
+    digits = fc.fold_digits(fc.CASE_LANES, 3, "cpu")
+    lanes = list(fc.DOUBLING_LANES)
+    head = digits[:, lanes].long().clone()
+    head[-1] = 0
+    (px, py), inf = cv.to_affine(genmul.gen_fold_plain(tx, ty, head))
+    entry = head.new_tensor([fc.COLLIDE_DIGITS[-1]] * len(lanes))
+    assert not bool(inf.any())
+    assert torch.equal(px, tx[:, -1, entry]) and torch.equal(py, ty[:, -1, entry])
+    assert fc.lane_scalar(digits, 1) == 0 and fc.lane_scalar(digits, 2) == hm.R - 1
+    assert all(int(digits[w, lane]) == 0 for w, lane in enumerate(fc.ZERO_DIGIT_LANES))
+    check = [0, 1, 2, 3, 35]
+    got = genmul.gen_fold_plain(tx, ty, digits[:, check].long())
+    assert cv.g1_from_device(got) == fc.oracle(digits, check)
+    assert cv.g1_from_device(tuple(c[:, :1] for c in got)) == [
+        hm.g1_mul(hm.G1_GEN, 2 * fc.COLLIDE % hm.R)]
+
+
+@pytest.mark.parametrize("n, threads", [(1, 32), (fc.CASE_LANES, 128), (70, 32)])
+def test_gen_fold_staged_plain_equals_gen_fold_plain(n, threads):
+    """The kernel's staged layout, lane-to-entry indexing and warp-uniform
+    doubling, emulated on the CPU, give gen_fold_plain's words on the case
+    table: one lane in a block of 32, every case in one block of 128 (two
+    warps that double), and 70 lanes in three blocks of 32, the last
+    partial."""
+    tx, ty = _tables()
+    digits = fc.fold_digits(n, 11, "cpu").long()
+    got = genmul.gen_fold_staged_plain(tx, ty, digits, threads=threads)
+    assert all(torch.equal(a, b) for a, b in zip(got, genmul.gen_fold_plain(tx, ty, digits)))
 
 
 def test_fold_entries_skips_sentinels_and_doubles():
     """K8's plain version: (0, 0) entries keep the accumulator, an all-(0, 0)
     lane is infinity, and a partial sum equal to the next entry doubles (the
-    exact madd). It agrees with gen_fold on the entries gen_fold gathers."""
+    exact madd). It agrees with gen_fold on the entries gen_fold gathers, on
+    every lane of the fold's case table."""
     tx, ty = _tables()
-    digits = genmul._digits8(FR.tensor(KS, "cpu", mont=False))
+    digits = fc.fold_digits(fc.CASE_LANES, 5, "cpu").long()
     idx = torch.arange(genmul.GEN_WINDOWS)[:, None]
     xs, ys = tx[:, idx, digits].permute(1, 0, 2), ty[:, idx, digits].permute(1, 0, 2)
     assert all(torch.equal(a, b) for a, b in zip(genmul.fold_entries(xs, ys),
@@ -185,7 +226,7 @@ def test_dbl_chain_bit_identical_to_kzg_tpu(steps):
     for _ in range(steps):
         want = G1.double(want)
     for g, w in zip(got, want):
-        assert torch.equal(g, convert.from_jax_limbs(np.asarray(w)))
+        assert torch.equal(g, convert.from_jax_limbs(np.asarray(w), "cpu"))
     assert cv.g1_from_device(got) == [hm.g1_mul(pt, 1 << steps) for pt in pts] + [None]
     assert all(torch.equal(a, b) for a, b in zip(cv.dbl_chain(p, 0), p))
 
@@ -216,7 +257,8 @@ def test_dbl_windows_equals_the_old_loop_and_kzg_tpu():
             for _ in range(steps):
                 want = G1.double(want)
         for g, w in zip(got, want):
-            assert torch.equal(g[:, k * 5 : (k + 1) * 5], convert.from_jax_limbs(np.asarray(w)))
+            assert torch.equal(g[:, k * 5 : (k + 1) * 5],
+                               convert.from_jax_limbs(np.asarray(w), "cpu"))
     assert cv.g1_from_device(got) == [hm.g1_mul(pt, 1 << (steps * k))
                                       for k in range(windows) for pt in pts]
 

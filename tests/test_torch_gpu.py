@@ -16,6 +16,7 @@ from kzg_torch.ops import field as fld
 from kzg_torch.ops import genmul, scans
 from kzg_torch.ops import poly
 from kzg_torch.ops.field import FP, FR
+from kzg_torch.utils import fold_cases
 from kzg_torch.utils import hostmath as hm
 
 pytestmark = pytest.mark.gpu
@@ -106,25 +107,27 @@ def test_inv_batch_kernel_matches_plain(cuda, name, n):
     assert _same(F.inv_batch(torch.zeros_like(a)), torch.zeros_like(a))
 
 
-def test_fold_kernels_match_plain(cuda):
-    """K5 and K8 on seeded digits with a zero digit in every window, k = 0
-    and k = r - 1 lanes."""
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 200 * 128, 1 << 16])
+def test_fold_kernels_match_plain(cuda, n):
+    """K5 and K8 on the case table of kzg_torch/utils/fold_cases.py (a
+    doubling lane, k = 0, k = r - 1, a zero digit in every window, a warp
+    with three doubling lanes) and seeded digits: one lane, a block short
+    of one lane, one block, a block and one lane, a partial wave (200
+    blocks of 128 on 132 SMs of two) and the ceremony's 2^16. K5 also
+    against the CPU emulation of its staged layout at n = 129."""
     tx, ty = genmul.gen_tables(cuda)
-    rng = np.random.default_rng(14)
-    digits = torch.from_numpy(rng.integers(0, 256, (32, 300)).astype(np.int32)).to(cuda)
-    diag = torch.arange(32, device=cuda)
-    digits[diag, diag] = 0
-    digits[:, 32] = 0
-    digits[:, 33] = genmul._digits8(FR.tensor([hm.R - 1], cuda, mont=False))[:, 0]
+    digits = fold_cases.fold_digits(n, 14, cuda)
     got = genmul.gen_fold(tx, ty, digits)
     assert _same(got, genmul.gen_fold_plain(tx, ty, digits.long()))
     w = torch.arange(32, device=cuda)[:, None]
     xs = tx[:, w, digits.long()].permute(1, 0, 2)
     ys = ty[:, w, digits.long()].permute(1, 0, 2)
     assert _same(genmul.fold_entries(xs, ys), got)
-    assert _same(genmul.fold_entries_plain(xs, ys), got)
-    assert cv.g1_from_device(tuple(c[:, 32:34] for c in got)) == [
-        None, hm.g1_mul(hm.G1_GEN, hm.R - 1)]
+    if n == 129:
+        assert _same(genmul.gen_fold_staged_plain(tx, ty, digits.long()), got)
+        assert _same(genmul.fold_entries_plain(xs, ys), got)
+    lanes = [lane for lane in (0, 1, 2, 3, 35) if lane < n]
+    assert cv.g1_from_device(tuple(c[:, lanes] for c in got)) == fold_cases.oracle(digits, lanes)
 
 
 @pytest.mark.parametrize("steps", [1, 5, 16])

@@ -59,7 +59,7 @@ def test_ladder_plain_bit_identical_to_kzg_tpu(n, masked):
         G1, (convert.to_jax_limbs(x), convert.to_jax_limbs(y)), convert.to_jax_limbs(k),
         None if mask is None else mask.numpy())
     for g, w in zip(got, want):
-        assert torch.equal(g, convert.from_jax_limbs(np.asarray(w)))
+        assert torch.equal(g, convert.from_jax_limbs(np.asarray(w), "cpu"))
     assert _affine(got) == oracle(base, ks, mask)
 
 

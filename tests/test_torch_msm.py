@@ -60,8 +60,9 @@ def test_scan_bit_identical_to_kzg_tpu_lax_scan():
     want_flat, want_totals = jmsm._fb_scan_cond_jit(
         convert.to_jax_limbs(x), convert.to_jax_limbs(y), m)
     for r, w, t in zip(runs, want_flat, want_totals):
-        assert torch.equal(r.permute(1, 2, 0).reshape(FP.L, C * m), convert.from_jax_limbs(np.asarray(w)))
-        assert torch.equal(r[-1], convert.from_jax_limbs(np.asarray(t)))
+        assert torch.equal(r.permute(1, 2, 0).reshape(FP.L, C * m),
+                           convert.from_jax_limbs(np.asarray(w), "cpu"))
+        assert torch.equal(r[-1], convert.from_jax_limbs(np.asarray(t), "cpu"))
     sums = _affine(tuple(r[-1] for r in runs))
     for c in (0, 3):
         acc = None
@@ -86,7 +87,7 @@ def test_hs_scan_bit_identical_to_kzg_tpu():
     fn = jax.jit(lambda p: jmsm._hs_scan_points(p, axis=2, reverse=True))
     want = fn(tuple(convert.to_jax_limbs(c) for c in jac))
     for g, w in zip(got, want):
-        assert torch.equal(g, convert.from_jax_limbs(np.asarray(w)))
+        assert torch.equal(g, convert.from_jax_limbs(np.asarray(w), "cpu"))
 
 
 def _host_scan(pts, reverse, exclusive):
@@ -303,7 +304,7 @@ def test_msm_on_kzg_tpu_tables(tables64):
         jnp.asarray(mask.numpy()))
     # the windowed doubling chain's tables equal the JAX package's word for word
     for got, want in zip(tables64[3], jt[:2]):
-        assert torch.equal(got, convert.from_jax_limbs(np.asarray(want)))
+        assert torch.equal(got, convert.from_jax_limbs(np.asarray(want), "cpu"))
     tables = convert.tables_from_jax(np.asarray(jt[0]), np.asarray(jt[1]), device="cpu")
     assert torch.equal(tables, msm.point_table(tables64[3]))
     ks = _scalars(64, 29)
@@ -346,7 +347,7 @@ def test_bucket_reduce_plain_matches_kzg_tpu_fbs_reduce():
     S = cv.g1_to_device([hm.g1_mul(hm.G1_GEN, buckets[b]) if b in buckets else None
                          for b in range(scans.N_BUCKET_SLOTS)], "cpu")
     want = jmsm._fbs_reduce(tuple(convert.to_jax_limbs(c) for c in S))
-    want = tuple(convert.from_jax_limbs(np.asarray(w)) for w in want)
+    want = tuple(convert.from_jax_limbs(np.asarray(w), "cpu") for w in want)
     got = msm.bucket_reduce_plain(*bucket_case(buckets))
     assert _affine(got) == _affine(want) == weighted_oracle(buckets)
 

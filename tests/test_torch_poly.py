@@ -44,7 +44,7 @@ def _jax(words):
 
 
 def _from_jax(a):
-    return convert.from_jax_limbs(np.asarray(a))
+    return convert.from_jax_limbs(np.asarray(a), "cpu")
 
 
 @pytest.fixture(scope="module")
