@@ -8,9 +8,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every kernel of kzg_torch/csrc, compiled with nvcc (one process per
    source, in parallel) into build/kzg_torch_kernels/; each kernel's
-   registers a thread, spills and shared memory from -Xptxas -v, and the
-   window fold's (K5) launch shape: threads and dynamic shared memory a
-   block, resident blocks an SM.
+   registers a thread, spills and shared memory from -Xptxas -v.
 3. kernels: each kernel against its plain PyTorch version on the card on
    seeded inputs with the exceptional cases (the multiply on every pair of
    p - 1, 0, 1 and R mod p; P == Q, P == -Q and infinity lanes, an odd
@@ -1548,12 +1546,6 @@ def main() -> int:
     missing = sorted({f for fns in DEVICE_FUNCTIONS.values() for f in fns} - set(usage))
     if missing:
         return fail(f"no -Xptxas -v report for {missing}")
-    from kzg_torch.ops import genmul
-
-    fold_shape = genmul.gen_fold_shape()
-    print(f"  gen_fold_kernel launch: {fold_shape['threads']} threads a block, "
-          f"{fold_shape['smem_bytes']} bytes of dynamic smem a block, "
-          f"{fold_shape['blocks_per_sm']} blocks an SM", flush=True)
 
     ctx = Ctx(torch, device)
     gc.callbacks.append(ctx.gc_callback)
@@ -1605,8 +1597,6 @@ def main() -> int:
                                for f in DEVICE_FUNCTIONS[name]),
             "launches_by_path": {lb: paths[lb][0].get(name, 0) for lb in paths},
         })
-        if name == "gen_fold":
-            kernels[-1]["launch"] = fold_shape
         if name == "bucket_reduce":
             chain = sum(BUCKET_REDUCE_CHAIN.values())
             kernels[-1]["critical_path"] = dict(BUCKET_REDUCE_CHAIN, ms_per_op=t["ms"] / chain)

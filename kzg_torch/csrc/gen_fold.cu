@@ -18,14 +18,12 @@
 //
 // kzg_gen_fold (K5), one thread a lane, kFoldThreads lanes a block:
 //
-//   The first port (one thread a lane, the exact madd inlined, each entry
-//   gathered from the tables in L2, 128 threads at 204 registers) ran at
-//   23 % of its bound. Its loop body was about 11,000 instructions (31
-//   madds of 11 inlined multiplies, the doubling's 7 more inside a
+//   With the exact madd inlined, the loop body is about 11,000
+//   instructions (11 multiplies of ~640, the doubling's 7 more inside a
 //   data-dependent branch), more than an SM's instruction caches hold. On
-//   an H100 this design takes 1.8 times as long with the multiplies
-//   inlined and 3-5 % longer with the exact madd's per-lane doubling branch
-//   (scripts/gen_fold_probe.py).
+//   an H100 this kernel takes 1.8 times as long with the multiplies
+//   inlined, and 3-5 % longer with the exact madd's per-lane doubling
+//   branch (scripts/gen_fold_probe.py).
 //
 //   - The point operations call the out-of-line multiply and square
 //     (g1.cuh FieldCalled): one copy of each in the instruction cache.
@@ -34,132 +32,54 @@
 //     its warp computes g1_double(acc) only when one of its lanes needs it
 //     (__any_sync, a warp-uniform branch), and that lane keeps the doubling.
 //     So each step's output is g1_madd's word for word.
-//   - The accumulator and the madd's output live in shared memory (acc,
-//     sum), not in registers across those calls.
-//   - Window w's 256 entries are staged once a block into shared memory,
-//     entry-major (x, then y, then one word of padding: 25 words an entry,
-//     an odd stride, so that the 32 lanes of a warp storing one word of 32
-//     consecutive entries hit 32 banks), by 4-byte cp.async copies straight
-//     from the (12, 32, 256) tables, whose rows are contiguous in the entry
-//     index: each warp reads 128 contiguous bytes of one table row. Two
-//     buffers: window w + 1 (and each lane's digit for it) arrives while
-//     window w's madds run, with one __syncthreads a window. Each lane then
-//     reads its entry from shared memory; 32 random entries of one window
-//     land on random banks whatever the layout.
+//   - The accumulator lives in shared memory, not in registers across
+//     those calls (36,864 B a block).
+//   - Each lane gathers its entry T[w][digit] from the (12, 32, 256) tables
+//     (786 KB, held in L2): 24 loads against some 7,000 instructions of a
+//     madd. Staging each window's 256 entries in shared memory (cp.async,
+//     double-buffered) ran within 1.5 % of this loop on an H100, so the
+//     loop stays.
 //   - Every thread runs all 32 windows (lanes past n take digit 0, the
-//     skip entry), so every warp is whole at __any_sync and every thread
-//     reaches __syncthreads; only lanes below n store. Window 0 is a copy:
-//     from infinity the madd gives the entry (x, y, ONE).
+//     skip entry), so every warp is whole at __any_sync; only lanes below
+//     n store. Window 0 is a copy: from infinity the madd gives the entry
+//     (x, y, ONE).
 //
-//   128 threads a block, 140 registers, 89,088 bytes of dynamic shared
-//   memory: two blocks an SM (8 warps), by shared memory. 2^16 lanes are 512
-//   blocks over 264 resident slots: 1.94 waves, the second 94 % full. What
-//   bounds it now is the integer pipe's instruction stream, not latency,
-//   memory or occupancy: entries loaded from L2 instead of staged land
-//   within 1.5 % of this design, and 512 threads a block (16 warps an SM,
-//   one wave) 1-2 % faster, but capped at 128 registers it spills.
+//   256 threads a block, one block an SM by registers (8 warps): 2^16
+//   lanes are 256 blocks over 132 SMs, 1.94 waves, the second 94 % full.
+//   Every lane is a chain of 31 dependent madds, so a wave's warps all end
+//   together and a wave part full costs nearly a whole one: blocks of 128
+//   fit three an SM (12 warps), and 2^16 lanes then make 1.29 waves, the
+//   second 29 % full: 8 % slower. 16 warps an SM (one wave) need 128
+//   registers a thread, spill, and run 5 % slower. What bounds it is the
+//   integer pipe's instruction stream, not memory: 8 warps an SM already
+//   keep it near its rate.
 //
 // kzg_fold_entries (K8) reads pre-gathered (W, 12, C) x and y word streams
 // and runs the first port's loop (the exact madd, inlined, in registers);
 // no library code calls it.
 #include "g1.cuh"
 
-// Compile-time choices of K5's design, for scripts/gen_fold_probe.py, which
-// builds this file once per variant to measure what each choice is worth.
-// The library is built with the defaults.
-#ifndef KZG_FOLD_OPS
-#define KZG_FOLD_OPS FieldCalled  // or FieldInline
-#endif
-#ifndef KZG_FOLD_EXACT
-#define KZG_FOLD_EXACT 0  // 1: the exact g1_madd, its doubling a per-lane branch
-#endif
-#ifndef KZG_FOLD_STAGED
-#define KZG_FOLD_STAGED 1  // 0: each lane loads its entry from the tables in L2
-#endif
-#ifndef KZG_FOLD_THREADS
-#define KZG_FOLD_THREADS 128
-#endif
-#ifndef KZG_FOLD_MIN_BLOCKS
-#define KZG_FOLD_MIN_BLOCKS 1  // __launch_bounds__'s resident blocks an SM
-#endif
-
 namespace kzg {
 
 constexpr int kWindows = 32;
 constexpr int kEntries = 256;
 constexpr long long kTableStride = (long long)kWindows * kEntries;  // words between limbs
-constexpr int kFoldThreads = KZG_FOLD_THREADS;
-constexpr int kEntryWords = 25;  // a staged entry: x (12 words), y (12), one of padding
-// a thread's share of a window's copies: entries t mod 256 + h kFoldThreads
-// (h < kStageEntries) of rows j = t / 256 + g kStageRows (j < 12)
-constexpr int kStageEntries = kFoldThreads < kEntries ? kEntries / kFoldThreads : 1;
-constexpr int kStageRows = kFoldThreads > kEntries ? kFoldThreads / kEntries : 1;
-static_assert(kFoldThreads % 32 == 0 && (kEntries % kFoldThreads == 0 ||
-                                         kFoldThreads % kEntries == 0 && 12 % kStageRows == 0),
-              "whole warps, and the same share of a window's copies for every thread");
+constexpr int kFoldThreads = 256;
 
-using FoldOps = KZG_FOLD_OPS;
-
-struct FoldSmem {
-#if KZG_FOLD_STAGED
-  u32 stage[2][kEntries * kEntryWords];  // windows w and w + 1, entry-major
-  int digit[2][kFoldThreads];            // each lane's digit of those windows
-#endif
-  jac_t acc[kFoldThreads];
-  jac_t sum[kFoldThreads];  // each lane's madd (or doubling) of this window
-};
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
-}
-
-#if KZG_FOLD_STAGED
-// Thread t's copies of window w into buffer buf, as one cp.async group:
-// word j of entry e (x words j < 12, y words after) from table word
-// j 8192 + 256 w + e to stage[e kEntryWords + j]; then the lane's digit.
-// Each warp copies 32 consecutive entries of one table row: 128 contiguous
-// bytes, stored to 32 banks (kEntryWords is odd). The row loop stays rolled:
-// unrolled, the compiler keeps every copy's address live across the window.
-__device__ __forceinline__ void stage_window(FoldSmem& s, const u32* tx, const u32* ty,
-                                             const int* digits, int w, int buf, long long i,
-                                             int n) {
-  const int t = threadIdx.x, e = t % kEntries;
-  const u32* src_x = tx + w * kEntries + e;
-  const u32* src_y = ty + w * kEntries + e;
-  u32* dst = &s.stage[buf][e * kEntryWords];
-#pragma unroll 1
-  for (int j = t / kEntries; j < 12; j += kStageRows) {
-#pragma unroll
-    for (int h = 0; h < kStageEntries; h++) {
-      cp_async4(dst + h * kFoldThreads * kEntryWords + j,
-                src_x + j * kTableStride + h * kFoldThreads);
-      cp_async4(dst + h * kFoldThreads * kEntryWords + 12 + j,
-                src_y + j * kTableStride + h * kFoldThreads);
-    }
-  }
-  if (i < n) cp_async4(&s.digit[buf][t], digits + (long long)w * n + i);
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-#endif
+using FoldOps = FieldCalled;
 
 // acc <- acc + (qx, qy) by the exact mixed add; the (0, 0) entry keeps acc.
-// sum holds the output until it is known. In window 0 every acc is
-// infinity, where the madd gives (qx, qy, ONE): that is copied, not computed.
-__device__ __forceinline__ void fold_madd(jac_t& acc, jac_t& sum, const fp_t& qx,
-                                          const fp_t& qy, int w) {
+// In window 0 every acc is infinity, where the madd gives (qx, qy, ONE):
+// that is copied, not computed.
+__device__ __forceinline__ void fold_madd(jac_t& acc, const fp_t& qx, const fp_t& qy, int w) {
   const bool skip = fzero(qx) && fzero(qy);
   if (w == 0) {
     if (!skip) acc = jac_t{qx, qy, fp_one()};
     asm volatile("" ::: "memory");
     return;
   }
-#if KZG_FOLD_EXACT
-  sum = g1_madd<FoldOps>(acc, qx, qy);
-  asm volatile("" ::: "memory");
-#else
   bool need;
-  sum = g1_madd_fast<FoldOps>(acc, qx, qy, need);
+  jac_t sum = g1_madd_fast<FoldOps>(acc, qx, qy, need);
   asm volatile("" ::: "memory");
   need = need && !skip;
   if (__any_sync(0xffffffffu, need)) {
@@ -167,43 +87,25 @@ __device__ __forceinline__ void fold_madd(jac_t& acc, jac_t& sum, const fp_t& qx
     if (need) sum = d;
     asm volatile("" ::: "memory");
   }
-#endif
   if (!skip) acc = sum;
   asm volatile("" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kFoldThreads, KZG_FOLD_MIN_BLOCKS)
+__global__ void __launch_bounds__(kFoldThreads)
     gen_fold_kernel(const u32* tx, const u32* ty, const int* digits, u32* ox, u32* oy, u32* oz,
                     int n) {
-  extern __shared__ __align__(16) unsigned char fold_smem[];
-  FoldSmem& s = *reinterpret_cast<FoldSmem*>(fold_smem);
+  __shared__ jac_t acc[kFoldThreads];
   const int t = threadIdx.x;
   const long long i = (long long)blockIdx.x * kFoldThreads + t;
-  s.acc[t] = jac_inf();
-#if KZG_FOLD_STAGED
-  if (i >= n) s.digit[0][t] = s.digit[1][t] = 0;  // the skip entry
-  stage_window(s, tx, ty, digits, 0, 0, i, n);
-#pragma unroll 1
-  for (int w = 0; w < kWindows; w++) {
-    const int buf = w & 1;
-    asm volatile("cp.async.wait_group 0;" ::: "memory");  // this thread's copies of w
-    __syncthreads();  // everyone's copies of w landed; everyone is done with w - 1
-    if (w + 1 < kWindows) stage_window(s, tx, ty, digits, w + 1, buf ^ 1, i, n);
-    const u32* e = &s.stage[buf][s.digit[buf][t] * kEntryWords];
-    fold_madd(s.acc[t], s.sum[t], *reinterpret_cast<const fp_t*>(e),
-              *reinterpret_cast<const fp_t*>(e + 12), w);
-  }
-#else
+  acc[t] = jac_inf();
 #pragma unroll 1
   for (int w = 0; w < kWindows; w++) {
     // the wrapper checks 0 <= digit < 256
     const long long e =
         (long long)w * kEntries + (i < n ? (u32)digits[(long long)w * n + i] : 0u);
-    const fp_t qx = load<12>(tx, kTableStride, e), qy = load<12>(ty, kTableStride, e);
-    fold_madd(s.acc[t], s.sum[t], qx, qy, w);
+    fold_madd(acc[t], load<12>(tx, kTableStride, e), load<12>(ty, kTableStride, e), w);
   }
-#endif
-  if (i < n) store_jac(ox, oy, oz, n, i, s.acc[t]);
+  if (i < n) store_jac(ox, oy, oz, n, i, acc[t]);
 }
 
 __device__ __forceinline__ jac_t fold_step(const jac_t& acc, const fp_t& qx, const fp_t& qy) {
@@ -227,38 +129,16 @@ __global__ void __launch_bounds__(128) fold_entries_kernel(const u32* xs, const 
 
 namespace {
 constexpr int kEntriesThreads = 128;
-constexpr int kFoldSmemBytes = (int)sizeof(kzg::FoldSmem);
-
-cudaError_t fold_smem_attr() {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kzg::gen_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFoldSmemBytes);
-  return attr;
-}
 }  // namespace
 
 extern "C" int kzg_gen_fold(const void* tx, const void* ty, const void* digits, void* ox,
                             void* oy, void* oz, int n, void* stream) {
   using namespace kzg;
   if (n <= 0) return 0;
-  const cudaError_t attr = fold_smem_attr();
-  if (attr != cudaSuccess) return (int)attr;
-  gen_fold_kernel<<<(n + kFoldThreads - 1) / kFoldThreads, kFoldThreads, kFoldSmemBytes,
+  gen_fold_kernel<<<(n + kFoldThreads - 1) / kFoldThreads, kFoldThreads, 0,
                     (cudaStream_t)stream>>>((const u32*)tx, (const u32*)ty, (const int*)digits,
                                             (u32*)ox, (u32*)oy, (u32*)oz, n);
   return (int)cudaGetLastError();
-}
-
-// K5's launch shape: threads a block, dynamic shared memory a block (bytes)
-// and resident blocks an SM, into out[0..2].
-extern "C" int kzg_gen_fold_shape(void* out) {
-  using namespace kzg;
-  int* o = (int*)out;
-  const cudaError_t attr = fold_smem_attr();
-  if (attr != cudaSuccess) return (int)attr;
-  o[0] = kFoldThreads;
-  o[1] = kFoldSmemBytes;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[2], gen_fold_kernel, kFoldThreads,
-                                                            kFoldSmemBytes);
 }
 
 extern "C" int kzg_fold_entries(const void* xs, const void* ys, void* ox, void* oy, void* oz,

@@ -53,7 +53,6 @@ SIGNATURES = {
     "kzg_hs_scan_offsets": [_P] * 9 + [_I, _I, _I, _I, _P],
     "kzg_hs_scan_apply": [_P] * 9 + [_I, _I, _I, _I, _I, _P],
     "kzg_gen_fold": [_P] * 6 + [_I, _P],
-    "kzg_gen_fold_shape": [_P],
     "kzg_fold_entries": [_P] * 5 + [_I, _I, _P],
     "kzg_dbl_chain": [_P] * 6 + [_I, _I, _I, _I, _P],
     "kzg_fr_eval": [_P, _I, _I, _I, _P, _P, _I, _P, _P],

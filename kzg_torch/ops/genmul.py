@@ -19,7 +19,6 @@ y^2 = x^3 + 4 has x = y = 0, so the fold skips exactly the all-zero entries.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 
@@ -120,47 +119,27 @@ def gen_fold_plain(tx, ty, digits):
                        n, digits.device)
 
 
-# K5's launch shape and staged layout (csrc/gen_fold.cu kFoldThreads,
-# kEntryWords): lanes a block, and words a staged entry (x, y, one of padding)
-FOLD_THREADS = 128
-FOLD_ENTRY_WORDS = 25
-
-
-def gen_fold_staged_plain(tx, ty, digits, threads: int = FOLD_THREADS):
-    """Plain K5 in the kernel's layout and order: the lanes padded to whole
-    blocks of ``threads`` (digit 0 past n); for each window, the staged
-    entry-major buffer built copy by copy with the kernel's indexing (word
-    k = j 256 + e of the window, j < 12 an x word and y after, from table
-    word (j mod 12) 8192 + 256 w + e, to stage[e FOLD_ENTRY_WORDS + j]);
-    each lane's entry read from it at its digit; then the fast madd, the
-    doubling computed for the warps that have a lane needing it, and the
-    skip of the (0, 0) entry; in window 0 the entry itself, as the madd
-    from infinity gives it. Equal to gen_fold_plain word for word."""
+def gen_fold_warp_plain(tx, ty, digits):
+    """Plain K5 in the kernel's order: the lanes padded to whole warps of 32
+    (digit 0 past n); in window 0 the entry itself, as the madd from
+    infinity gives it; after it the fast madd, the doubling computed only
+    for the warps that have a lane needing it, and the skip of the (0, 0)
+    entry. Equal to gen_fold_plain word for word."""
     n = digits.shape[1]
-    lanes = -(-n // threads) * threads
+    lanes = -(-n // 32) * 32
     d = torch.zeros(GEN_WINDOWS, lanes, dtype=torch.int64, device=digits.device)
     d[:, :n] = digits
-    flat = (tx.reshape(-1), ty.reshape(-1))
-    k = torch.arange(2 * FP.L * GEN_ENTRIES, device=digits.device)
-    j, e = k // GEN_ENTRIES, k % GEN_ENTRIES
-    word = torch.arange(FP.L, device=digits.device)[:, None]
     acc = tuple(torch.zeros(FP.L, lanes, dtype=torch.int32, device=digits.device)
                 for _ in range(3))
     for w in range(GEN_WINDOWS):
-        src = (j % FP.L) * GEN_WINDOWS * GEN_ENTRIES + w * GEN_ENTRIES + e
-        stage = torch.zeros(GEN_ENTRIES * FOLD_ENTRY_WORDS, dtype=torch.int32,
-                            device=digits.device)
-        stage[e * FOLD_ENTRY_WORDS + j] = torch.where(j < FP.L, flat[0][src], flat[1][src])
-        at = d[w] * FOLD_ENTRY_WORDS
-        qx, qy = stage[at + word], stage[at + FP.L + word]
+        qx, qy = tx[:, w, d[w]], ty[:, w, d[w]]
         skip = FP.is_zero(qx) & FP.is_zero(qy)
         if w == 0:  # every acc is infinity: the madd's output is (qx, qy, ONE)
             acc = cv.select(skip, acc, (qx, qy, FP.one_like(qx)))
             continue
         out, need = cv.g1_madd_plain(acc, (qx, qy), fast=True)
         need = need & ~skip
-        warp = need.view(-1, 32).any(1).repeat_interleave(32)
-        if bool(warp.any()):
+        if bool(need.view(-1, 32).any(1).any()):
             out = cv.select(need, cv.g1_double_plain(acc), out)
         acc = cv.select(skip, acc, out)
     return tuple(c[:, :n] for c in acc)
@@ -175,8 +154,8 @@ def gen_fold(tx, ty, digits):
     """K5: per lane i, sum_w T[w][digits[w, i]] as a Jacobian (12, n)
     triple. tx, ty (12, 32, 256) tables; digits (32, n) integers in
     [0, 256). CPU tensors take the plain version; CUDA tensors launch
-    ``kzg_gen_fold`` (csrc/gen_fold.cu), which stages each window's
-    table in shared memory itself."""
+    ``kzg_gen_fold`` (csrc/gen_fold.cu), which gathers from the tables
+    itself."""
     if tx.shape != (FP.L, GEN_WINDOWS, GEN_ENTRIES) or ty.shape != tx.shape:
         raise ValueError(f"tables must be ({FP.L}, {GEN_WINDOWS}, {GEN_ENTRIES})")
     if digits.dim() != 2 or digits.shape[0] != GEN_WINDOWS:
@@ -193,17 +172,6 @@ def gen_fold(tx, ty, digits):
         _build.launch("gen_fold", "kzg_gen_fold", tx.data_ptr(), ty.data_ptr(), digits.data_ptr(),
                       *(o.data_ptr() for o in out), n)
     return out
-
-
-def gen_fold_shape() -> dict:
-    """K5's launch on the current card: threads a block, dynamic shared
-    memory a block (bytes) and resident blocks an SM (CUDA's occupancy
-    query)."""
-    out = (ctypes.c_int * 3)()
-    code = _build.library().kzg_gen_fold_shape(ctypes.addressof(out))
-    if code != 0:
-        raise RuntimeError(f"kzg_gen_fold_shape failed: cudaError {code}")
-    return {"threads": out[0], "smem_bytes": out[1], "blocks_per_sm": out[2]}
 
 
 def fold_entries(xs, ys):

@@ -1,19 +1,18 @@
 #!/usr/bin/env python3
 """K5, the ceremony's window fold (kzg_torch/csrc/gen_fold.cu
-gen_fold_kernel), in each variant of its design, on one card: what each
+gen_fold_kernel), against variants of its design on one card: what each
 choice of the kernel's header is worth.
 
-Each variant is gen_fold.cu compiled with other values of its KZG_FOLD_*
-macros (nvcc for sm_90a, one process a variant, all at once) into its own
-library under build/gen_fold_probe/; the library's build of the file is the
-variant "kernel". Per variant: ptxas's registers and spills, the launch
-shape (threads, dynamic shared memory, resident blocks an SM), a check
-against genmul.gen_fold_plain at n = 1, 127, 128, 129, 25,600 (a partial
-wave) and 2^16 on the cases of kzg_torch/utils/fold_cases.py (bit-identical
-expected; a mismatch fails the run), then its time at the ceremony's
-shape (2^16 lanes, 16 calls: ms a call by CUDA events over 10 launches,
-after 2 warm-up launches, times 16), in turns: the variants in order, then
-in reverse.
+Each variant is made from the committed gen_fold.cu by text substitution
+(VARIANTS) and compiled with the library's nvcc flags (one process a
+variant, all at once) into build/gen_fold_probe/; "kernel" is the source as
+committed. Per variant: ptxas's registers, spills and shared memory, a
+check against genmul.gen_fold_plain at n = 1, 127, 128, 129, 25,600 (a
+partial wave) and 2^16 on the cases of kzg_torch/utils/fold_cases.py
+(bit-identical expected; a mismatch fails the run), then its time at the
+ceremony's shape (2^16 lanes, 16 calls: ms a call by CUDA events over 10
+launches, after 2 warm-up launches, times 16), in turns: the variants in
+order, then in reverse.
 
     python3 scripts/gen_fold_probe.py
 
@@ -34,16 +33,29 @@ import torch  # noqa: E402
 from kzg_torch.ops import _build, genmul  # noqa: E402
 from kzg_torch.utils import fold_cases  # noqa: E402
 
-# variant -> the macros it sets (the library's build sets none)
+EXACT_MADD = (
+    '''  bool need;
+  jac_t sum = g1_madd_fast<FoldOps>(acc, qx, qy, need);
+  asm volatile("" ::: "memory");
+  need = need && !skip;
+  if (__any_sync(0xffffffffu, need)) {
+    const jac_t d = g1_double<FoldOps>(acc);
+    if (need) sum = d;
+    asm volatile("" ::: "memory");
+  }
+''',
+    '''  const jac_t sum = g1_madd<FoldOps>(acc, qx, qy);
+  asm volatile("" ::: "memory");
+''')
+INLINE = ("using FoldOps = FieldCalled;", "using FoldOps = FieldInline;")
+# variant -> its (committed text, replacement) pairs
 VARIANTS = {
-    "kernel": {},
-    "inline": {"KZG_FOLD_OPS": "FieldInline"},
-    "exact": {"KZG_FOLD_EXACT": "1"},
-    "gather": {"KZG_FOLD_STAGED": "0"},
-    "gather_4_blocks": {"KZG_FOLD_STAGED": "0", "KZG_FOLD_MIN_BLOCKS": "4"},
-    "inline_exact_gather": {"KZG_FOLD_OPS": "FieldInline", "KZG_FOLD_EXACT": "1",
-                            "KZG_FOLD_STAGED": "0"},
-    "threads512": {"KZG_FOLD_THREADS": "512"},
+    "kernel": [],
+    "inline": [INLINE],
+    "exact": [EXACT_MADD],
+    "inline_exact": [INLINE, EXACT_MADD],
+    "128_threads": [("kFoldThreads = 256;", "kFoldThreads = 128;")],
+    "2_blocks": [("__launch_bounds__(kFoldThreads)", "__launch_bounds__(kFoldThreads, 2)")],
 }
 CHECK_SIZES = (1, 127, 128, 129, 25600, 1 << 16)
 LANES = 1 << 16
@@ -53,17 +65,22 @@ OUT = ROOT / "build" / "gen_fold_probe"
 
 
 def build_variants() -> dict:
+    """Compile every variant at once; returns name -> (library, ptxas usage)."""
     OUT.mkdir(parents=True, exist_ok=True)
-    nvcc = _build.nvcc_path()
-    src = _build.CSRC / "gen_fold.cu"
+    committed = (_build.CSRC / "gen_fold.cu").read_text()
     procs = {}
-    for name, macros in VARIANTS.items():
-        defs = [f"-D{k}={v}" for k, v in macros.items()]
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", *defs, "-shared", str(src),
-               "-o", str(OUT / f"{name}.so")]
+    for name, subs in VARIANTS.items():
+        src = committed
+        for old, new in subs:
+            if old not in src:
+                raise RuntimeError(f"gen_fold.cu no longer holds {old!r}")
+            src = src.replace(old, new)
+        (OUT / f"{name}.cu").write_text(src)
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC),
+               "-shared", str(OUT / f"{name}.cu"), "-o", str(OUT / f"{name}.so")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
-    libs = {}
+    out = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         (OUT / f"{name}.ptxas.txt").write_text(log)
@@ -72,9 +89,8 @@ def build_variants() -> dict:
             raise RuntimeError(f"nvcc failed on variant {name}")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         lib.kzg_gen_fold.argtypes = _build.SIGNATURES["kzg_gen_fold"]
-        lib.kzg_gen_fold_shape.argtypes = _build.SIGNATURES["kzg_gen_fold_shape"]
-        libs[name] = lib
-    return libs
+        out[name] = (lib, _build.ptxas_usage(OUT / f"{name}.ptxas.txt")["gen_fold_kernel"])
+    return out
 
 
 def launcher(lib, tables, digits):
@@ -113,33 +129,25 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip()
     print(card, flush=True)
-    libs = build_variants()
+    variants = build_variants()
     tables = genmul.gen_tables(device)
     report = {}
-    for name, lib in libs.items():
-        shape = (ctypes.c_int * 3)()
-        code = lib.kzg_gen_fold_shape(ctypes.addressof(shape))
-        if code:
-            raise RuntimeError(f"{name}: kzg_gen_fold_shape failed: cudaError {code}")
-        usage = _build.ptxas_usage(OUT / f"{name}.ptxas.txt")["gen_fold_kernel"]
-        report[name] = dict(usage, threads=shape[0], dynamic_smem=shape[1],
-                            blocks_per_sm=shape[2], ms_per_call=[])
+    for name, (_, usage) in variants.items():
+        report[name] = dict(usage, ms_per_call=[])
         print(f"{name}: {usage['registers']} registers, {usage['spill_stores']} / "
-              f"{usage['spill_loads']} B spill stores / loads, {shape[0]} threads, "
-              f"{shape[1]} B dynamic smem, {shape[2]} blocks an SM", flush=True)
+              f"{usage['spill_loads']} B spill stores / loads, {usage['smem']} B smem", flush=True)
     for n in CHECK_SIZES:
         digits = fold_cases.fold_digits(n, SEED + n, device)
         want = genmul.gen_fold_plain(*tables, digits.long())
-        for name, lib in libs.items():
+        for name, (lib, _) in variants.items():
             got = launcher(lib, tables, digits)()
             torch.cuda.synchronize()
             if not all(torch.equal(g, w) for g, w in zip(got, want)):
                 raise AssertionError(f"{name} differs from gen_fold_plain at n = {n}")
         print(f"n = {n}: every variant bit-identical to gen_fold_plain", flush=True)
     digits = fold_cases.fold_digits(LANES, SEED, device)
-    runs = {name: launcher(lib, tables, digits) for name, lib in libs.items()}
-    order = list(runs) + list(runs)[::-1]
-    for name in order:
+    runs = {name: launcher(lib, tables, digits) for name, (lib, _) in variants.items()}
+    for name in list(runs) + list(runs)[::-1]:
         report[name]["ms_per_call"].append(time_ms(runs[name]))
     for name, r in report.items():
         r["ms_per_ceremony"] = [CALLS * t for t in r["ms_per_call"]]

@@ -87,7 +87,7 @@ def test_fold_bit_identical_to_kzg_tpu_mul_gen():
         assert torch.equal(g, convert.from_jax_limbs(np.asarray(w), "cpu"))
     assert cv.g1_from_device(got) == [hm.g1_mul(hm.G1_GEN, k) if k else None for k in KS]
     digits = genmul._digits8(FR.tensor(KS, "cpu", mont=False))
-    for g, s in zip(got, genmul.gen_fold_staged_plain(tx, ty, digits, threads=32)):
+    for g, s in zip(got, genmul.gen_fold_warp_plain(tx, ty, digits)):
         assert torch.equal(g, s)
 
 
@@ -114,16 +114,16 @@ def test_fold_cases_hold_their_exceptional_lanes():
         hm.g1_mul(hm.G1_GEN, 2 * fc.COLLIDE % hm.R)]
 
 
-@pytest.mark.parametrize("n, threads", [(1, 32), (fc.CASE_LANES, 128), (70, 32)])
-def test_gen_fold_staged_plain_equals_gen_fold_plain(n, threads):
-    """The kernel's staged layout, lane-to-entry indexing and warp-uniform
-    doubling, emulated on the CPU, give gen_fold_plain's words on the case
-    table: one lane in a block of 32, every case in one block of 128 (two
-    warps that double), and 70 lanes in three blocks of 32, the last
-    partial."""
+@pytest.mark.parametrize("n", [1, fc.CASE_LANES, 70])
+def test_gen_fold_warp_plain_equals_gen_fold_plain(n):
+    """The kernel's order (lanes padded to whole warps, window 0 copied, the
+    fast madd with the doubling computed only for a warp that needs it),
+    emulated on the CPU, gives gen_fold_plain's words on the case table:
+    one lane in a warp of 32, every case (two warps that double), and 70
+    lanes in three warps, the last partial."""
     tx, ty = _tables()
     digits = fc.fold_digits(n, 11, "cpu").long()
-    got = genmul.gen_fold_staged_plain(tx, ty, digits, threads=threads)
+    got = genmul.gen_fold_warp_plain(tx, ty, digits)
     assert all(torch.equal(a, b) for a, b in zip(got, genmul.gen_fold_plain(tx, ty, digits)))
 
 
@@ -131,13 +131,18 @@ def test_fold_entries_skips_sentinels_and_doubles():
     """K8's plain version: (0, 0) entries keep the accumulator, an all-(0, 0)
     lane is infinity, and a partial sum equal to the next entry doubles (the
     exact madd). It agrees with gen_fold on the entries gen_fold gathers, on
-    every lane of the fold's case table."""
+    every lane of the fold's case table and on KS (long runs of skipped
+    windows: 1 << 128 has one entry, in window 16; 255 one, in window 0),
+    and with the host oracle on KS and the case table's first lanes."""
     tx, ty = _tables()
-    digits = fc.fold_digits(fc.CASE_LANES, 5, "cpu").long()
+    digits = torch.cat([fc.fold_digits(fc.CASE_LANES, 5, "cpu").long(),
+                        genmul._digits8(FR.tensor(KS, "cpu", mont=False))], 1)
     idx = torch.arange(genmul.GEN_WINDOWS)[:, None]
     xs, ys = tx[:, idx, digits].permute(1, 0, 2), ty[:, idx, digits].permute(1, 0, 2)
-    assert all(torch.equal(a, b) for a, b in zip(genmul.fold_entries(xs, ys),
-                                                  genmul.gen_fold(tx, ty, digits)))
+    got = genmul.fold_entries(xs, ys)
+    assert all(torch.equal(a, b) for a, b in zip(got, genmul.gen_fold(tx, ty, digits)))
+    lanes = [0, 1, 2, 3, 35] + list(range(fc.CASE_LANES, fc.CASE_LANES + len(KS)))
+    assert cv.g1_from_device(tuple(c[:, lanes] for c in got)) == fc.oracle(digits, lanes)
     # lane 0: P, P, (0, 0), P -> 3P; lane 1: all (0, 0); lane 2: P, Q, (0, 0), -P -> Q
     P, Q = hm.g1_mul(hm.G1_GEN, 5), hm.g1_mul(hm.G1_GEN, 11)
     lanes = [[P, P, (0, 0), P], [(0, 0)] * 4, [P, Q, (0, 0), hm.g1_neg(P)]]

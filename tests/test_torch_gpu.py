@@ -107,14 +107,14 @@ def test_inv_batch_kernel_matches_plain(cuda, name, n):
     assert _same(F.inv_batch(torch.zeros_like(a)), torch.zeros_like(a))
 
 
-@pytest.mark.parametrize("n", [1, 127, 128, 129, 200 * 128, 1 << 16])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 256, 257, 100 * 256, 1 << 16])
 def test_fold_kernels_match_plain(cuda, n):
     """K5 and K8 on the case table of kzg_torch/utils/fold_cases.py (a
     doubling lane, k = 0, k = r - 1, a zero digit in every window, a warp
-    with three doubling lanes) and seeded digits: one lane, a block short
-    of one lane, one block, a block and one lane, a partial wave (200
-    blocks of 128 on 132 SMs of two) and the ceremony's 2^16. K5 also
-    against the CPU emulation of its staged layout at n = 129."""
+    with three doubling lanes) and seeded digits: one lane, four warps and
+    a partial one, one block of 256 and one lane past it, a partial wave
+    (100 blocks of 256 on 132 SMs) and the ceremony's 2^16. K5 also
+    against the CPU emulation of its warp order at n = 129."""
     tx, ty = genmul.gen_tables(cuda)
     digits = fold_cases.fold_digits(n, 14, cuda)
     got = genmul.gen_fold(tx, ty, digits)
@@ -124,7 +124,7 @@ def test_fold_kernels_match_plain(cuda, n):
     ys = ty[:, w, digits.long()].permute(1, 0, 2)
     assert _same(genmul.fold_entries(xs, ys), got)
     if n == 129:
-        assert _same(genmul.gen_fold_staged_plain(tx, ty, digits.long()), got)
+        assert _same(genmul.gen_fold_warp_plain(tx, ty, digits.long()), got)
         assert _same(genmul.fold_entries_plain(xs, ys), got)
     lanes = [lane for lane in (0, 1, 2, 3, 35) if lane < n]
     assert cv.g1_from_device(tuple(c[:, lanes] for c in got)) == fold_cases.oracle(digits, lanes)
