@@ -58,6 +58,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      polynomial (the reference CLI's degree 9) against the 2^20 SRS, whose
      first 10 points the commit takes; two MSMs, each one K2b launch and no
      K2 launch. The proof must equal the host oracle as the 2^20 one does.
+   - setup, after those paths (phase_setup): (a) the reference CLI's
+     trusted-setup, generate_setup of 10 points from tests/golden/setup.json's
+     secret with no generator tables (256 launches each of K2's double and
+     madd and K9's double and madd: SETUP_REF_LAUNCHES), its bytes and
+     SetupArtifactsGenerator's first 10 items' those of the golden file and
+     of hostmath; (b) generate_setup of 2^16 points (the tables built in
+     the run): G1 equal to chunked_srs_g1's words and G2 by K9 to the plain
+     route on the card (tables and fold on fp2's plain operations) on every
+     lane, G2 to hostmath's s^k G2 on 64 lanes, the first and last among
+     them; (c) save_setup, then load_setup through the two device batches
+     with the subgroup checks ([r] P by K2 for G1 and K9 for G2): the same
+     bytes back, an off-subgroup G2 point, an off-curve G1 point and x >= p
+     rejected with kzg_tpu's messages, and DeviceSRS.load's words those of
+     DeviceSRS.from_artifacts; (d) the 2^20 ceremony's points compressed,
+     then g1_decompress_batch with the subgroup check: the ceremony's words.
    Each commit must equal the host oracle (sum a_i s^i mod r) G1, and each
    kernel of a path must have launched in its run.
 5. replay: every logged call again at its shapes on seeded inputs, kernel
@@ -95,7 +110,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    2^255 + k, r + 2 and r, P and -P, equal lanes, two lanes flagged
    infinite; unmasked too), each against msm_batched_plain, that route on
    K2's kernels (bit-identical) and the host oracle. The other sizes (1, 2,
-   127, 128, 16383, 65536) are tests/test_torch_gpu.py's.
+   127, 128, 16383, 65536) are tests/test_torch_gpu.py's. Then K9 on the
+   case table of kzg_torch/utils/g2_cases.py at n = 1, 127, 128 and 129,
+   against its plain version (bit-identical) and the case lanes against
+   the host oracle.
    All after every timing: run before the paths, such checks' allocations
    moved the buffers the later paths allocate, and the window fold (K5)
    read slower for it.
@@ -114,7 +132,10 @@ square needs only the 78 distinct word products a_i a_k (i <= k) before the
 12 reduction rows: 2 * (78 + 12^2 + 12) = 468. The point formulas are counted
 in their cheapest published forms (M an Fp multiply, S a square): a point
 add 11M + 5S (add-2007-bl) = 8,940, a mixed add 7M + 4S (madd-2007-bl) =
-6,072, a doubling 2M + 5S (dbl-2009-l) = 3,540. A prefix sum of W points
+6,072, a doubling 2M + 5S (dbl-2009-l) = 3,540; over Fp2 (G2, K9) an M is
+three Fp multiplies (Karatsuba) and an S two (the complex square), so an
+add is 43 Fp multiplies (25,800), a mixed add 29 (17,400) and a doubling
+16 (9,600), and each moves 96 bytes a coordinate. A prefix sum of W points
 needs W - 1 adds (W - 2 when exclusive), whatever order a kernel adds in; a
 fold needs one mixed add per non-zero entry after a lane's first (the first
 is a copy), counted on the inputs of the run. The fused scan over P pairs in
@@ -178,7 +199,13 @@ FR_MUL_OPS = 2 * (2 * 8 * 8 + 8)
 G1_ADD_OPS = 11 * FP_MUL_OPS + 5 * FP_SQR_OPS
 G1_MADD_OPS = 7 * FP_MUL_OPS + 4 * FP_SQR_OPS
 G1_DBL_OPS = 2 * FP_MUL_OPS + 5 * FP_SQR_OPS
+FP2_MUL_OPS = 3 * FP_MUL_OPS  # Karatsuba: three Fp products
+FP2_SQR_OPS = 2 * FP_MUL_OPS  # the complex square: two
+G2_ADD_OPS = 11 * FP2_MUL_OPS + 5 * FP2_SQR_OPS
+G2_MADD_OPS = 7 * FP2_MUL_OPS + 4 * FP2_SQR_OPS
+G2_DBL_OPS = 2 * FP2_MUL_OPS + 5 * FP2_SQR_OPS
 FP_BYTES = 48
+FP2_BYTES = 96
 MAX_FP_MULS_TABLES = 10  # Fp multiply launches the table build may make
 MAX_FP_MULS_CEREMONY = 100  # and the whole ceremony
 MAX_FR_MULS_PROOF = 4  # Fr multiply launches the proof may make
@@ -215,6 +242,10 @@ KERNELS = {
     "bucket_reduce": ("kzg_torch/csrc/bucket_reduce.cu", "kzg_tpu/ops/pallas_curve.py:260"),
     # K2 as the batched MSM uses it (kzg_tpu/ops/msm.py:74-85, msm_batched_affine)
     "ladder_msm": ("kzg_torch/csrc/ladder_msm.cu", "kzg_tpu/ops/pallas_curve.py:260"),
+    # K9: G2's formulas, XLA around K1 in the JAX package (JacobianCurve over fp2)
+    "g2_double": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:82"),
+    "g2_add": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:103"),
+    "g2_madd": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:137"),
 }
 # kernel -> its CUDA functions in the -Xptxas -v report
 DEVICE_FUNCTIONS = {
@@ -233,6 +264,7 @@ DEVICE_FUNCTIONS = {
     "fr_divide": ["fr_eval_kernel", "fr_div_top_kernel", "fr_div_down_kernel"],
     "bucket_reduce": ["bucket_reduce_kernel"],
     "ladder_msm": ["ladder_msm_kernel"],
+    "g2_double": ["g2_double_kernel"], "g2_add": ["g2_add_kernel"], "g2_madd": ["g2_madd_kernel"],
 }
 SRS_CHUNK = 1 << 16  # the chunk bench.py passes to the JAX package's ceremony
 DBL_STEPS = 16
@@ -241,6 +273,16 @@ MAIN = f"fixed-base commit 2^{LOG_N} (table build + first commit)"
 PROOF = f"opening proof 2^{LOG_N} (evaluate + generate_proof)"
 BATCHED = f"batched-affine commit {BATCHED_N}"
 REF = f"reference-size commit and proof {REF_N}"
+SETUP_SECRET = bytes(range(32))  # tests/golden/setup.json's secret
+LOG_SETUP = 16
+SETUP_REF = f"generate_setup {REF_N} (the reference CLI's trusted-setup, no generator tables)"
+SETUP = f"generate_setup 2^{LOG_SETUP}"
+LOAD = f"load_setup 2^{LOG_SETUP} (both device batches, subgroup-checked)"
+DECOMPRESS = f"g1_decompress_batch 2^{LOG_N} (the ceremony's points, subgroup-checked)"
+SETUP_SPOT_LANES = 64  # lanes of the 2^16 setup's G2 held to hostmath
+# the reference-size setup's launches: the 256-step ladder of each group on 9 lanes
+SETUP_REF_LAUNCHES = {"g1_double": 256, "g1_madd": 256, "g2_double": 256, "g2_madd": 256}
+G2_CHECK_SIZES = (1, 127, 128, 129)  # K9's edge checks; the paths' shapes are replayed
 # the kernels each path must launch
 PATH_KERNELS = {
     CEREMONY: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "g1_madd", "gen_fold"},
@@ -250,6 +292,11 @@ PATH_KERNELS = {
             "fr_divide"},
     BATCHED: {"mont_mul_fr", "ladder_msm"},
     REF: {"ladder_msm", "fr_evaluate", "fr_divide"},
+    SETUP_REF: {"mont_mul_fr", "mont_mul_fp", "inv_batch_fp", "g1_double", "g1_madd",
+                "g2_double", "g2_madd"},
+    SETUP: {"mont_mul_fr", "mont_mul_fp", "inv_batch_fp", "g1_madd", "gen_fold", "g2_madd"},
+    LOAD: {"mont_mul_fp", "g1_double", "g1_add", "g2_double", "g2_add"},
+    DECOMPRESS: {"mont_mul_fp", "g1_double", "g1_add"},
 }
 
 
@@ -819,6 +866,9 @@ def logging_calls():
             "bucket_reduce", tuple(U[0].shape), tuple(off[0].shape))),
         (msm, "msm_batched_affine", lambda pts, scalars, inf_mask=None: (
             "ladder_msm", tuple(scalars.shape), inf_mask is not None)),
+        (cv, "g2_double", lambda p: ("g2_double", tuple(p[0].shape))),
+        (cv, "g2_add", lambda p, q: ("g2_add", tuple(p[0].shape))),
+        (cv, "g2_madd", lambda p, q: ("g2_madd", tuple(p[0].shape))),
     ]
     originals = []
 
@@ -1069,7 +1119,9 @@ def phase_paths(ctx):
     paths = {CEREMONY: (cer_launches, cer_calls), MAIN: (launches, calls),
              PROOF: (proof_launches, proof_calls), BATCHED: (small_launches, small_calls),
              REF: (ref_launches, ref_calls)}
-    return paths, {"ladder_srs_ms": t_srs, "ladder_to_affine_ms": t_aff,
+    setup_paths, setup_times = phase_setup(ctx, gx, gy)
+    paths.update(setup_paths)
+    return paths, {"setup": setup_times, "ladder_srs_ms": t_srs, "ladder_to_affine_ms": t_aff,
                    "ceremony_first_ms": t_cer, "ceremony_ms": cer_warm[1],
                    "ceremony_runs_ms": cer_warm, "tables_ms": t_tab,
                    "tables_launches": dict(tab_launches),
@@ -1082,6 +1134,203 @@ def phase_paths(ctx):
                    "ref_commit_ms": ref_commit[1], "ref_commit_runs_ms": ref_commit,
                    "ref_proof_ms": ref_proofs[1], "ref_proof_runs_ms": ref_proofs,
                    }, lambda: poly.commit(srs)
+
+
+def host_setup_bytes(secret: int, n: int) -> str:
+    """setup.json of n points rendered by hostmath alone: the bytes the
+    ceremony must give."""
+    from kzg_torch import artifacts as art
+    from kzg_torch.utils import hostmath as hm
+
+    items, pw = [], 1
+    for _ in range(n):
+        items.append({"g1": list(hm.g1_compress(hm.g1_mul(hm.G1_GEN, pw))),
+                      "g2": list(hm.g2_compress(hm.g2_mul(hm.G2_GEN, pw)))})
+        pw = pw * secret % hm.R
+    return art.dumps(items)
+
+
+def compress_g1(ctx, x, y):
+    """Affine Montgomery words (12, n) -> n 48-byte ZCash encodings,
+    vectorized: x big-endian with the compression flag, the sign flag
+    where y > (p - 1) / 2 (no point here is infinity)."""
+    import numpy as np
+    from kzg_torch.ops import codec
+    from kzg_torch.ops.field import FP
+
+    xs = np.ascontiguousarray(FP.from_mont(x).cpu().numpy().view("<u4").T)
+    raw = np.ascontiguousarray(xs.view(np.uint8)[:, ::-1])
+    sign = codec._gt_half(FP.from_mont(y)).cpu().numpy()
+    raw[:, 0] |= np.uint8(0x80) | (sign.astype(np.uint8) << 5)
+    return [row.tobytes() for row in raw]
+
+
+def phase_setup(ctx, gx, gy):
+    """The setup paths, each driven with the counts set to 0:
+    (a) the reference CLI's trusted-setup, generate_setup of 10 points from
+    tests/golden/setup.json's secret, in a process without generator
+    tables (the 256-step ladder of each group, K2 and K9), against
+    hostmath's rendering and that file, SetupArtifactsGenerator's first 10
+    items too; (b) generate_setup of 2^16 points from a seeded secret:
+    G1 against chunked_srs_g1 on every lane, G2's K9 route against the
+    plain route on the card (tables and fold, fp2 on FP.mul) on every lane
+    and against hostmath on 64; (c) save_setup, then load_setup through
+    both device batches with the subgroup checks: the same bytes back,
+    kzg_tpu's rejections of three tampered files, DeviceSRS.load's words
+    those of DeviceSRS.from_artifacts; (d) the 2^20 ceremony's points
+    compressed, then g1_decompress_batch with the subgroup check: the
+    ceremony's words back."""
+    import json
+
+    torch = ctx.torch
+    from kzg_torch import DeviceSRS, Scalar, SetupArtifactsGenerator, generate_setup
+    from kzg_torch import artifacts as art
+    from kzg_torch.errors import SerializationError
+    from kzg_torch.ops import codec, fp2, genmul
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops import poly as polyops
+    from kzg_torch.ops.field import FP, FR
+    from kzg_torch.utils import hostmath as hm
+
+    t_phase = time.perf_counter()
+    out, paths = {}, {}
+
+    def run(label, fn):
+        ms, res, launches, calls = drive(ctx, label, fn)
+        paths[label] = (launches, calls)
+        return ms, res
+
+    # (a): a fresh process has no tables; the ceremony path built G1's
+    genmul._tables.clear()
+    secret = Scalar.from_be_bytes(SETUP_SECRET)
+    want = host_setup_bytes(secret.to_int(), REF_N)
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                          "setup.json")
+    with open(golden) as f:
+        if f.read() != want:
+            raise AssertionError("hostmath's 10-point setup.json differs from the golden file")
+
+    def ref_setup():
+        return generate_setup(secret, REF_N, device=ctx.device)
+
+    t_ref, ref = run(SETUP_REF, ref_setup)
+    ref_launches = paths[SETUP_REF][0]
+    for name, count in SETUP_REF_LAUNCHES.items():
+        if ref_launches.get(name, 0) != count:
+            raise AssertionError(f"{SETUP_REF}: {ref_launches.get(name, 0)} {name} launches "
+                                 f"(expected {count})")
+    t_gen, items = ctx.time_once(lambda: SetupArtifactsGenerator(SETUP_SECRET, device=ctx.device)
+                                 .take(REF_N))
+    for label, got in (("generate_setup", ref), ("SetupArtifactsGenerator", items)):
+        if art.dumps([a.to_json() for a in got]) != want:
+            raise AssertionError(f"{label}'s 10-point setup.json differs from the golden bytes")
+    ref_runs = sorted(ctx.time_once(ref_setup)[0] for _ in range(3))
+    if genmul.tables_built(ctx.device, cv.G1) or genmul.tables_built(ctx.device, cv.G2):
+        raise AssertionError("the reference-size setup built generator tables")
+    out.update(ref_first_ms=t_ref, ref_ms=ref_runs[1], ref_runs_ms=ref_runs,
+               generator_take10_ms=t_gen)
+    print(f"  {SETUP_REF}: {t_ref:.1f} ms first, median of 3 warm runs {ref_runs[1]:.1f} ms "
+          f"({ref_runs}); SetupArtifactsGenerator.take(10) {t_gen:.1f} ms; both equal "
+          f"tests/golden/setup.json", flush=True)
+
+    # (b)
+    n = 1 << LOG_SETUP
+    s = random.Random(SEED + 3).randrange(1, hm.R)
+
+    def big_setup():
+        return generate_setup(Scalar(s), n, device=ctx.device)
+
+    t_big, setup = run(SETUP, big_setup)
+    big_runs = sorted(ctx.time_once(big_setup)[0] for _ in range(2))
+    g1_ints = [a.g1.affine() for a in setup]
+    sx, sy = genmul.chunked_srs_g1(s, n, chunk=n, device=ctx.device)
+    if not (torch.equal(FP.tensor([p[0] for p in g1_ints], ctx.device), sx)
+            and torch.equal(FP.tensor([p[1] for p in g1_ints], ctx.device), sy)):
+        raise AssertionError(f"{SETUP}: G1 differs from chunked_srs_g1's words")
+    std = FR.from_mont(polyops.power_sequence(FR.tensor([s], ctx.device)[:, 0], n))[:, 1:]
+    k9 = genmul.mul_gen(std, group=cv.G2)
+    plain_tables = genmul._build_tables(ctx.device, cv.G2, madd=cv.g2_madd_plain)
+    if not same(ctx, plain_tables, genmul.gen_tables(ctx.device, cv.G2)):
+        raise AssertionError(f"{SETUP}: the G2 tables differ from the plain route's")
+    digits = genmul._digits8(std)
+    check(ctx, f"{SETUP}: G2 by K9 against the plain route on the card, {n - 1} lanes", k9,
+          genmul.fold_g2(*plain_tables, digits, madd=cv.g2_madd_plain))
+    (x2, y2), _ = cv.g2_to_affine(k9)
+    g2_ints = [a.g2.affine() for a in setup]
+    if not (torch.equal(fp2.tensor([p[0] for p in g2_ints[1:]], ctx.device), x2)
+            and torch.equal(fp2.tensor([p[1] for p in g2_ints[1:]], ctx.device), y2)):
+        raise AssertionError(f"{SETUP}: G2 differs from the K9 route's words")
+    lanes = sorted({0, 1, n - 1} | set(random.Random(SEED + 4).sample(range(n), SETUP_SPOT_LANES - 3)))
+    if any(g2_ints[k] != hm.g2_mul(hm.G2_GEN, pow(s, k, hm.R)) for k in lanes):
+        raise AssertionError(f"{SETUP}: G2 differs from hostmath's s^k G2")
+    out.update(big_first_ms=t_big, big_ms=big_runs)
+    print(f"  {SETUP}: {t_big:.1f} ms first (tables built), warm {big_runs}; G1 equals "
+          f"chunked_srs_g1 and G2 the plain route on all {n} lanes, G2 hostmath on "
+          f"{len(lanes)} lanes", flush=True)
+
+    # (c)
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, "setup.json")
+    out["save_ms"], _ = ctx.time_once(lambda: art.save_setup(setup, path))
+    with open(path) as f:
+        text = f.read()
+    t_load, loaded = run(LOAD, lambda: art.load_setup(path, device=ctx.device))
+    if art.dumps([a.to_json() for a in loaded]) != text:
+        raise AssertionError(f"{LOAD}: the loaded setup re-serializes to other bytes")
+    raw = json.loads(text)
+    off_curve = [0x80] + [0] * 46 + [1]
+    while hm.fp_sqrt(off_curve[-1] ** 3 + hm.B_G1) is not None:
+        off_curve[-1] += 1
+    k = 1
+    while hm.fp2_sqrt(hm.fp2_add(hm.fp2_mul(hm.fp2_sq((k, 0)), (k, 0)), hm.B_G2)) is None:
+        k += 1
+    off_subgroup = ((k, 0), hm.fp2_sqrt(hm.fp2_add(hm.fp2_mul(hm.fp2_sq((k, 0)), (k, 0)),
+                                                   hm.B_G2)))
+    x_big = list(bytes([0x80 | (hm.P >> 376)]) + hm.P.to_bytes(48, "big")[1:])
+    bad_path = os.path.join(folder, "tampered.json")
+    for lane, key, value, message in (
+            (n // 2, "g2", list(hm.g2_compress(off_subgroup)),
+             "Point not in the prime-order subgroup"),
+            (n - 1, "g1", off_curve, "Point not on curve"),
+            (7, "g1", x_big, "x coordinate not in field")):
+        entry = raw[lane]
+        raw[lane] = dict(entry, **{key: value})
+        with open(bad_path, "w") as f:
+            f.write(art.dumps(raw))
+        raw[lane] = entry
+        try:
+            art.load_setup(bad_path, device=ctx.device)
+        except SerializationError as e:
+            if str(e) != message:
+                raise AssertionError(f"{LOAD}: {key} at {lane} raised {e!r}, not {message!r}")
+        else:
+            raise AssertionError(f"{LOAD}: a tampered {key} at {lane} loaded")
+    t_srs, srs = ctx.time_once(lambda: DeviceSRS.load(path, device=ctx.device))
+    want_srs = DeviceSRS.from_artifacts(setup, device=ctx.device)
+    if not (torch.equal(srs.g1_x, want_srs.g1_x) and torch.equal(srs.g1_y, want_srs.g1_y)
+            and srs.g1_inf is None and srs.g2 == want_srs.g2):
+        raise AssertionError(f"{LOAD}: DeviceSRS.load differs from DeviceSRS.from_artifacts")
+    out["device_srs_load_ms"] = t_srs
+    print(f"  {LOAD}: save {out['save_ms']:.1f} ms, load {t_load:.1f} ms, the same bytes back; "
+          f"an off-subgroup G2, an off-curve G1 and x >= p rejected with kzg_tpu's messages; "
+          f"DeviceSRS.load {t_srs:.1f} ms, equal to from_artifacts", flush=True)
+
+    # (d)
+    t_cmp, blobs = ctx.time_once(lambda: compress_g1(ctx, gx, gy))
+    spot = [0, 1, gx.shape[1] - 1]
+    if [blobs[i] for i in spot] != [hm.g1_compress(p) for p in cv.g1_from_device(
+            (gx[:, spot], gy[:, spot], FP.one_like(gx[:, spot])))]:
+        raise AssertionError("the vectorized compression differs from hostmath's")
+    t_dec, jac = run(DECOMPRESS, lambda: codec.g1_decompress_batch(blobs, True, ctx.device))
+    if not same(ctx, jac, (gx, gy, FP.one_like(gx))):
+        raise AssertionError(f"{DECOMPRESS}: differs from the ceremony's words")
+    out.update(load_ms=t_load, decompress_ms=t_dec, compress_ms=t_cmp,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  {DECOMPRESS}: {t_dec:.1f} ms (compressing {t_cmp:.1f} ms, set-up); equals the "
+          f"ceremony's words on all {gx.shape[1]} lanes", flush=True)
+    print(f"  the setup phase (a)-(d), checks included: {out['phase_s']:.1f} s", flush=True)
+    return paths, out
 
 
 def phase_stages(ctx, secret, poly, x, srs):
@@ -1164,7 +1413,7 @@ def chunked(torch, fn, args, n: int):
     """fn over lane slices [i, i + PLAIN_CHUNK) of (L, n) word tensors (nested
     in tuples), the outputs concatenated along the last axis."""
     def cut(a, i, j):
-        return tuple(cut(x, i, j) for x in a) if isinstance(a, tuple) else a[:, i:j]
+        return tuple(cut(x, i, j) for x in a) if isinstance(a, tuple) else a[..., i:j]
 
     def cat(parts):
         if isinstance(parts[0], tuple):
@@ -1313,6 +1562,24 @@ def replay_case(ctx, spec):
         ctx.ladder_chains[spec] = ladder_chain(k, mask)
         return (lambda: msm.msm_batched_affine((x, y), k, mask),
                 lambda: msm.msm_batched_plain((x, y), k, mask), *ladder_cost(k, mask))
+    if name in ("g2_double", "g2_add", "g2_madd"):
+        from kzg_torch.utils import g2_cases
+
+        n = math.prod(shape[2:])
+        p, q, qa = g2_cases.case_points(n, SEED, ctx.device)
+        view = lambda pt: tuple(c.view(shape) for c in pt)  # noqa: E731
+        flat = lambda pt: tuple(c.reshape(FP.L, 2, n) for c in pt)  # noqa: E731
+        if name == "g2_double":
+            return (lambda: flat(cv.g2_double(view(p))),
+                    lambda: chunked(torch, cv.g2_double_plain, (p,), n),
+                    6 * FP2_BYTES * n, G2_DBL_OPS * n)
+        if name == "g2_add":
+            return (lambda: flat(cv.g2_add(view(p), view(q))),
+                    lambda: chunked(torch, cv.g2_add_plain, (p, q), n),
+                    9 * FP2_BYTES * n, G2_ADD_OPS * n)
+        return (lambda: flat(cv.g2_madd(view(p), view(qa))),
+                lambda: chunked(torch, cv.g2_madd_plain, (p, qa), n),
+                8 * FP2_BYTES * n, G2_MADD_OPS * n)
     if name == "dbl_chain":
         steps = spec[2]
         n = math.prod(shape[1:])
@@ -1413,15 +1680,18 @@ def phase_off_path(ctx):
     Then the field multiply's two probes, at shapes any checkout's table
     build has run, so that two checkouts' runs compare the header: K1 at
     2^24 Fp lanes and K2's doubling at 2^20 lanes (reported beside, not in,
-    their kernels' rows). The Fr inversion has no caller on a path either:
-    it is checked and timed at 2^20 lanes."""
+    their kernels' rows); and K9's madd at 2^16 lanes, 1.94 waves of its
+    blocks (the 2^16 setup's path runs chunks of 8192 lanes, under one
+    wave). The Fr inversion has no caller on a path either: it is checked
+    and timed at 2^20 lanes."""
     from kzg_torch.ops.field import FP, FR
 
     out, extra = {}, {}
     for spec in (("fold_entries", (32, FP.L, SRS_CHUNK)), ("inv_batch_fr", (FR.L, 1 << LOG_N)),
                  ("dbl_chain", (FP.L, 128), 5),
                  ("dbl_chain", (FP.L, CHECK_LANES), DBL_STEPS),
-                 ("mont_mul_fp", (FP.L, 1 << 24)), ("g1_double", (FP.L, 1 << LOG_N))):
+                 ("mont_mul_fp", (FP.L, 1 << 24)), ("g1_double", (FP.L, 1 << LOG_N)),
+                 ("g2_madd", (FP.L, 2, 1 << LOG_SETUP))):
         kern, plain, n_bytes, n_ops = replay_case(ctx, spec)
         plain_ms, want = ctx.time_once(plain)
         err = check(ctx, f"{spec[0]} {spec[1:]}", kern(), want)
@@ -1431,7 +1701,7 @@ def phase_off_path(ctx):
               flush=True)
         entry = {"ms": ms, "plain_ms": plain_ms, "err": err, "calls": 1, "launches": 0,
                  "bound_ms": b, "bound_by": by, "shape": str(spec[1:])}
-        if spec[0] in ("mont_mul_fp", "g1_double"):
+        if spec[0] in ("mont_mul_fp", "g1_double", "g2_madd"):
             extra[f"{spec[0]} {entry['shape']}"] = entry
             continue
         if spec[0] in out:
@@ -1509,6 +1779,32 @@ def phase_ladder_edges(ctx):
                 raise AssertionError(f"{label}: differs from the host oracle")
 
 
+def phase_g2_edges(ctx):
+    """K9 against its plain version on the case table of
+    kzg_torch/utils/g2_cases.py (p, q or both at infinity, P == Q in other
+    and in the same words, P == -Q, p at infinity with X and Y not zero,
+    madd's first lane at infinity) at n = 1, 127, 128 and 129, the case
+    lanes also against the host oracle. The paths' shapes are the
+    replays'."""
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.utils import g2_cases
+
+    for n in G2_CHECK_SIZES:
+        p, q, qa = g2_cases.case_points(n, SEED + n, ctx.device)
+        for op, kern, plain in (("double", cv.g2_double, cv.g2_double_plain),
+                                ("add", cv.g2_add, cv.g2_add_plain),
+                                ("madd", cv.g2_madd, cv.g2_madd_plain)):
+            args = (p,) if op == "double" else (p, q if op == "add" else qa)
+            got = kern(*args)
+            check(ctx, f"g2_{op} (n={n}, the case table)", got, plain(*args))
+            m = min(n, g2_cases.CASE_LANES)
+            aff = cv.g2_from_device(tuple(c[..., :m] for c in got))
+            for lane, want in g2_cases.oracle(SEED + n, op).items():
+                if lane < m and aff[lane] != want:
+                    raise AssertionError(f"g2_{op} (n={n}): {g2_cases.CASES[lane]} differs "
+                                         f"from the host oracle")
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "kzg_torch", "csrc")):
@@ -1576,13 +1872,15 @@ def main() -> int:
     phase_reduce_edges(ctx, spec[2][1])
     print("== the batched MSM (K2b), exceptional cases", flush=True)
     phase_ladder_edges(ctx)
+    print("== G2's point formulas (K9), exceptional cases", flush=True)
+    phase_g2_edges(ctx)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # each kernel's numbers come from the first of these paths that runs it;
         # its launches on every path stand beside them
-        label = next((lb for lb in (MAIN, CEREMONY, PROOF, BATCHED, REF)
-                      if name in per_path[lb]), None)
+        label = next((lb for lb in (MAIN, CEREMONY, PROOF, BATCHED, REF, SETUP, LOAD,
+                                    DECOMPRESS, SETUP_REF) if name in per_path[lb]), None)
         if label is None and name not in off_path:
             return fail(f"{name} was launched on no path")
         t = per_path[label][name] if label is not None else off_path[name]

@@ -5,14 +5,15 @@ points run on the first CUDA card unless the caller passes ``device="cpu"``.
 The kernels (``csrc/``) are built with nvcc on first use.
 """
 
-from .curves import G1Point
+from .curves import G1Point, G2Point
 from .errors import CliError, KzgError, ProtocolError, SerializationError
 from .polynomial import Evaluation, Polynomial
 from .scalar import Scalar
-from .trusted_setup import DeviceSRS, SetupArtifact
+from .trusted_setup import DeviceSRS, SetupArtifact, SetupArtifactsGenerator, generate_setup
 
 __all__ = [
     "G1Point",
+    "G2Point",
     "CliError",
     "KzgError",
     "ProtocolError",
@@ -22,4 +23,6 @@ __all__ = [
     "Scalar",
     "DeviceSRS",
     "SetupArtifact",
+    "SetupArtifactsGenerator",
+    "generate_setup",
 ]

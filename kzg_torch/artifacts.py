@@ -8,8 +8,10 @@
   evaluation.json = {"evaluation": {"point": [32 u8], "result": [32 u8]},
                      "proof": [48 u8]}
 
-Setup points are decompressed one by one on the host; the batched device
-decompression of large setups is a later slice of the port.
+A setup.json of ``_BULK_LOAD_MIN`` points or more is decompressed in two
+device batches (``ops/codec.py``: one for G1, one for G2, each checked for
+the prime-order subgroup); a smaller one point by point on the host
+(``SetupArtifact.from_json``), as ``kzg_tpu/artifacts.py:87-115`` does.
 """
 
 from __future__ import annotations
@@ -18,10 +20,14 @@ import json
 import os
 from dataclasses import dataclass
 
-from .curves import G1Point
-from .errors import CliError
+from .curves import G1Point, G2Point
+from .errors import CliError, SerializationError
+from .ops import codec
+from .ops import fp2
+from .ops.field import FP
 from .polynomial import Evaluation, Polynomial
 from .trusted_setup import SetupArtifact
+from .utils.device import resolve_device
 
 SETUP_ARTIFACTS_PATH = "./artifacts/setup.json"
 COMMITMENT_ARTIFACTS_PATH = "./artifacts/commitment.json"
@@ -79,11 +85,41 @@ def save_setup(artifacts: list[SetupArtifact], path: str = SETUP_ARTIFACTS_PATH)
     write_file(path, dumps([a.to_json() for a in artifacts]))
 
 
-def load_setup(path: str = SETUP_ARTIFACTS_PATH) -> list[SetupArtifact]:
+_BULK_LOAD_MIN = 64  # below this the per-point host path is cheaper than the device batches
+
+
+def _host_points(coords, inf, to_ints) -> list:
+    """Affine words (Z the Montgomery one or zero) -> host points, None at
+    infinity."""
+    return [None if i else p for p, i in zip(zip(to_ints(coords[0]), to_ints(coords[1])),
+                                              inf.tolist())]
+
+
+def load_setup(path: str = SETUP_ARTIFACTS_PATH, device=None) -> list[SetupArtifact]:
+    """setup.json's artifacts. From ``_BULK_LOAD_MIN`` points on (on
+    ``device``, the card unless asked): every entry's lengths checked
+    first, then one G1 and one G2 device batch, each checked for the
+    prime-order subgroup, with the per-point path's messages."""
     if not os.path.exists(path):
         raise CliError("Trusted setup artifacts have not been found, generate them beforehand.")
     with open(path) as f:
-        return [SetupArtifact.from_json(a) for a in json.load(f)]
+        raw = json.load(f)
+    if len(raw) < _BULK_LOAD_MIN:
+        return [SetupArtifact.from_json(a) for a in raw]
+    for a in raw:
+        for key, ln in (("g1", 48), ("g2", 96)):
+            d = a[key]
+            if not isinstance(d, list) or len(d) != ln:
+                raise SerializationError(
+                    f"Invalid byte array, expected length {ln}, got {len(d) if isinstance(d, list) else type(d)}"
+                )
+    device = resolve_device(device)
+    g1 = codec.g1_decompress_batch([bytes(a["g1"]) for a in raw], True, device)
+    g2 = codec.g2_decompress_batch([bytes(a["g2"]) for a in raw], True, device)
+    g1_pts = _host_points(g1, FP.is_zero(g1[2]), FP.from_words_many)
+    g2_pts = _host_points(g2, fp2.is_zero(g2[2]), fp2.to_ints)
+    return [SetupArtifact(G1Point.from_affine(p1), G2Point.from_affine(p2))
+            for p1, p2 in zip(g1_pts, g2_pts)]
 
 
 def save_commitment(artifact: CommitmentArtifact, path: str = COMMITMENT_ARTIFACTS_PATH):

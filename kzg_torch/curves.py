@@ -1,11 +1,11 @@
-"""The G1 group type: the reference's ``G1Point`` (src/curves.rs), as in
-``kzg_tpu/curves.py``.
+"""The group types: the reference's ``G1Point`` and ``G2Point``
+(src/curves.rs), as in ``kzg_tpu/curves.py``.
 
-A point wraps a device Jacobian triple of (12,) Montgomery words, or host
-affine ints, and converts between them on demand: an MSM result stays on the
-device until its affine form, compression or JSON is asked for. Compression
-follows the ZCash convention (48 bytes; src/curves.rs:99-110) at the host
-boundary.
+A point wraps a device Jacobian triple of (12,) (G1) or (12, 2) (G2)
+Montgomery words, or host affine ints, and converts between them on demand:
+an MSM result stays on the device until its affine form, compression or
+JSON is asked for. Compression follows the ZCash convention (48 bytes for
+G1, 96 for G2; src/curves.rs:99-110, :259-343) at the host boundary.
 """
 
 from __future__ import annotations
@@ -68,3 +68,61 @@ class G1Point:
 
     def __repr__(self):
         return f"G1Point({self.affine()})"
+
+
+class G2Point:
+    """A G2 point (``kzg_tpu/curves.py:129-167``): affine, compression and
+    JSON. Its group operations wait for the port's verify slice."""
+
+    __slots__ = ("_jac", "_affine")
+
+    def __init__(self, jac=None, affine=_UNSET):
+        self._jac = jac  # (X, Y, Z), each (12, 2) int32 words, or None
+        self._affine = affine  # host ((x0, x1), (y0, y1)), None for infinity, or _UNSET
+
+    @classmethod
+    def from_affine(cls, p) -> "G2Point":
+        """Host affine Fp2 ints ((x0, x1), (y0, y1)), or None for infinity."""
+        return cls(None, p)
+
+    def affine(self):
+        """Host affine Fp2 ints, or None for infinity."""
+        if self._affine is _UNSET:
+            self._affine = cv.g2_from_device(tuple(c.reshape(c.shape[0], 2, 1) for c in self._jac))[0]
+        return self._affine
+
+    def is_infinity(self) -> bool:
+        return self.affine() is None
+
+    def compress(self) -> bytes:
+        return hm.g2_compress(self.affine())
+
+    @classmethod
+    def decompress(cls, data: bytes) -> "G2Point":
+        """96 compressed bytes, checked on the host (flags, field range,
+        curve, subgroup: hostmath.g2_decompress)."""
+        try:
+            p = hm.g2_decompress(bytes(data))
+        except (TypeError, ValueError) as e:
+            raise SerializationError(str(e)) from e
+        return cls.from_affine(p)
+
+    def to_json(self) -> list[int]:
+        return list(self.compress())
+
+    @classmethod
+    def from_json(cls, data) -> "G2Point":
+        if not isinstance(data, list) or len(data) != 96:
+            raise SerializationError(
+                f"Invalid byte array, expected length 96, got {len(data) if isinstance(data, list) else type(data)}"
+            )
+        return cls.decompress(data)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, G2Point) and self.affine() == other.affine()
+
+    def __hash__(self):
+        return hash(("G2Point", self.affine()))
+
+    def __repr__(self):
+        return f"G2Point({self.affine()})"

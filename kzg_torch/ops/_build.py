@@ -60,6 +60,9 @@ SIGNATURES = {
     "kzg_fr_div_down": [_P, _I, _P, _P, _I, _P, _P, _P],
     "kzg_bucket_reduce": [_P] * 11 + [_I, _I, _P],
     "kzg_ladder_msm": [_P] * 6 + [_I, _P],
+    "kzg_g2_double": [_P] * 6 + [_I, _P],
+    "kzg_g2_add": [_P] * 9 + [_I, _P],
+    "kzg_g2_madd": [_P] * 8 + [_I, _P],
 }
 
 _lib = None

@@ -1,15 +1,18 @@
-"""Batched G1 Jacobian arithmetic on word tensors.
+"""Batched G1 and G2 Jacobian arithmetic on word tensors.
 
-Counterpart of the G1 half of ``kzg_tpu/ops/curve.py``. A point is an
-``(X, Y, Z)`` triple of ``(12, *batch)`` int32 Fp tensors in Montgomery form,
-``Z == 0`` marking infinity; an affine point is ``(x, y)`` with an
-``inf`` mask beside it where lanes may be infinite.
+Counterpart of ``kzg_tpu/ops/curve.py``. A G1 point is an ``(X, Y, Z)``
+triple of ``(12, *batch)`` int32 Fp tensors in Montgomery form, a G2 point a
+triple of ``(12, 2, *batch)`` Fp2 tensors (``ops/fp2.py``); ``Z == 0``
+marks infinity. An affine point is ``(x, y)`` with an ``inf`` mask beside it
+where lanes may be infinite.
 
-The three formulas (double, add, madd) are kernel K2 (``csrc/g1_point.cu``,
+G1's three formulas (double, add, madd) are kernel K2 (``csrc/g1_point.cu``,
 device functions in ``csrc/g1.cuh``) on CUDA tensors and their plain versions
-on CPU tensors. The plain versions below work on 16-bit limbs in int64 and
-follow ``kzg_tpu/ops/curve.py:82-170`` term for term, exceptional lanes
-included, so kernel, plain version and the JAX package agree bit for bit.
+on CPU tensors; G2's are kernel K9 (``csrc/g2_point.cu``, ``csrc/g2.cuh``).
+The plain versions follow ``kzg_tpu/ops/curve.py:82-170`` term for term,
+exceptional lanes included, so kernel, plain version and the JAX package
+agree bit for bit: G1's on 16-bit limbs in int64, G2's on ``fp2``'s
+operations (whose products are K1 on a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -17,9 +20,12 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from . import fp2
 from . import limbs as lb
 from .field import FP, FR
 from ..utils import hostmath as hm
+
+G1, G2 = "G1", "G2"  # the groups, as the functions below that serve both name them
 
 # ---------------------------------------------------------------------------
 # Plain versions on 16-bit limbs (tuples of (24, N) int64 tensors)
@@ -332,7 +338,8 @@ def is_inf(p):
 
 
 def select(mask, p, q):
-    return tuple(FP.select(mask, a, b) for a, b in zip(p, q))
+    """p where mask (of the batch shape), else q: points of either group."""
+    return tuple(torch.where(mask, a, b) for a, b in zip(p, q))
 
 
 def inf_like(p):
@@ -360,18 +367,199 @@ def scalar_bit(k: torch.Tensor, i: int) -> torch.Tensor:
     return ((k[i // 32] >> (i % 32)) & 1) == 1
 
 
-def mul_scalar_affine(p_affine, k: torch.Tensor, nbits: int = 256, double=None, madd=None):
+def _group_ops(group):
+    """A group's (double, add, madd, is_inf), looked up when called."""
+    if group == G1:
+        return g1_double, g1_add, g1_madd, is_inf
+    if group == G2:
+        return g2_double, g2_add, g2_madd, g2_is_inf
+    raise ValueError(f"no group {group!r}")
+
+
+def mul_scalar(p, k, nbits: int = 256, group=G1):
+    """[k] p for Jacobian base points: MSB-first double-and-add
+    (curve.py:205-226) on the group's kernels. k is either (8, *batch)
+    standard-form Fr words, a scalar a lane (every step adds, a select
+    keeps it where the bit is set), or a python int, one scalar for every
+    lane: then its steps above the top set bit are skipped (there the
+    JAX package's acc is the zero words of infinity, whose doubling gives
+    the same words, and its first add gives p, or zeros where p is
+    infinite) and only its set bits add. The same words either way."""
+    double, add, _, inf = _group_ops(group)
+    if isinstance(k, int):
+        k &= (1 << nbits) - 1
+        if k == 0:
+            return inf_like(p)
+        acc = select(inf(p), inf_like(p), p)
+        for i in range(k.bit_length() - 2, -1, -1):
+            acc = double(acc)
+            if (k >> i) & 1:
+                acc = add(acc, p)
+        return acc
+    acc = inf_like(p)
+    for i in range(nbits - 1, -1, -1):
+        acc = double(acc)
+        acc = select(scalar_bit(k, i), add(acc, p), acc)
+    return acc
+
+
+def mul_scalar_affine(p_affine, k: torch.Tensor, nbits: int = 256, double=None, madd=None,
+                      group=G1):
     """[k] p for affine base points: MSB-first double-and-add with mixed adds
-    (curve.py:228-245), on K2's double and exact madd unless ``double`` and
-    ``madd`` are given. p_affine (x, y) (12, n); k (8, n) standard-form Fr
-    words. Lanes must not be infinite (callers mask them)."""
-    double, madd = double or g1_double, madd or g1_madd
+    (curve.py:228-245), on the group's kernels (K2 for G1, K9 for G2) unless
+    ``double`` and ``madd`` are given. p_affine (x, y) (12, n) or (12, 2, n)
+    words; k (8, n) standard-form Fr words. Lanes must not be infinite
+    (callers mask them)."""
+    g_double, _, g_madd, _ = _group_ops(group)
+    double, madd = double or g_double, madd or g_madd
     x, y = p_affine
     acc = inf_like((x, x, x))
     for i in range(nbits - 1, -1, -1):
         acc = double(acc)
         acc = select(scalar_bit(k, i), madd(acc, (x, y)), acc)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# G2 over Fp2. Plain versions: the JAX package's formulas on ``fp2``.
+# ---------------------------------------------------------------------------
+
+
+def g2_is_inf(p):
+    return fp2.is_zero(p[2])
+
+
+def g2_double_plain(p):
+    """dbl-2009-l (a = 0): 2M + 5S. Maps infinity to infinity."""
+    F = fp2
+    X, Y, Z = p
+    A = F.square(X)
+    B = F.square(Y)
+    C = F.square(B)
+    t = F.square(F.add(X, B))
+    D = F.dbl(F.sub(F.sub(t, A), C))
+    E = F.add(F.dbl(A), A)
+    Fq = F.square(E)
+    X3 = F.sub(Fq, F.dbl(D))
+    eightC = F.dbl(F.dbl(F.dbl(C)))
+    Y3 = F.sub(F.mul(E, F.sub(D, X3)), eightC)
+    Z3 = F.dbl(F.mul(Y, Z))
+    return (X3, Y3, Z3)
+
+
+def _g2_exceptional(p, out, same_x, same_y):
+    """The equal-x lanes: P == Q doubles P (computed only when some lane
+    needs it), P == -Q gives the zero words of infinity."""
+    need = same_x & same_y
+    if bool(need.any()):
+        out = select(need, g2_double_plain(p), out)
+    return select(same_x & ~same_y, inf_like(out), out)
+
+
+def g2_add_plain(p, q):
+    """add-2007-bl with the exceptional lanes in the JAX package's order
+    (curve.py:103-135): P == Q doubles, P == -Q gives infinity, then a lane
+    with p at infinity takes q and one with q at infinity takes p."""
+    F = fp2
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    Z1Z1 = F.square(Z1)
+    Z2Z2 = F.square(Z2)
+    U1 = F.mul(X1, Z2Z2)
+    U2 = F.mul(X2, Z1Z1)
+    S1 = F.mul(Y1, F.mul(Z2, Z2Z2))
+    S2 = F.mul(Y2, F.mul(Z1, Z1Z1))
+    H = F.sub(U2, U1)
+    I = F.square(F.dbl(H))
+    J = F.mul(H, I)
+    dS = F.sub(S2, S1)
+    r = F.dbl(dS)
+    V = F.mul(U1, I)
+    X3 = F.sub(F.sub(F.square(r), J), F.dbl(V))
+    Y3 = F.sub(F.mul(r, F.sub(V, X3)), F.dbl(F.mul(S1, J)))
+    Z3 = F.mul(F.mul(Z1, Z2), F.dbl(H))
+    out = _g2_exceptional(p, (X3, Y3, Z3), F.is_zero(H), F.is_zero(dS))
+    out = select(g2_is_inf(p), q, out)
+    return select(g2_is_inf(q), p, out)
+
+
+def g2_madd_plain(p, q_affine):
+    """madd-2007-bl (Z2 = 1) with the exceptional lanes (curve.py:137-170):
+    a lane with p at infinity returns (x2, y2, ONE). q_affine must not be a
+    lane at infinity (callers mask those lanes)."""
+    F = fp2
+    X1, Y1, Z1 = p
+    X2, Y2 = q_affine
+    Z1Z1 = F.square(Z1)
+    U2 = F.mul(X2, Z1Z1)
+    S2 = F.mul(Y2, F.mul(Z1, Z1Z1))
+    H = F.sub(U2, X1)
+    I = F.square(F.dbl(H))
+    J = F.mul(H, I)
+    dS = F.sub(S2, Y1)
+    r = F.dbl(dS)
+    V = F.mul(X1, I)
+    X3 = F.sub(F.sub(F.square(r), J), F.dbl(V))
+    Y3 = F.sub(F.mul(r, F.sub(V, X3)), F.dbl(F.mul(Y1, J)))
+    Z3 = F.mul(F.dbl(H), Z1)
+    out = _g2_exceptional(p, (X3, Y3, Z3), F.is_zero(H), F.is_zero(dS))
+    q_jac = (X2.expand_as(X1), Y2.expand_as(Y1), F.one(X1))
+    return select(g2_is_inf(p), q_jac, out)
+
+
+# ---------------------------------------------------------------------------
+# K9: G2's double, add and madd. Wrappers.
+# ---------------------------------------------------------------------------
+
+
+def _flat2(coords):
+    shape = coords[0].shape
+    if any(c.shape != shape for c in coords) or tuple(shape[:2]) != (FP.L, 2):
+        raise ValueError("G2 point coordinates must share one (12, 2, *batch) shape")
+    n = coords[0].numel() // (2 * FP.L)
+    flat = tuple(c.reshape(FP.L, 2, n).contiguous() for c in coords)
+    _build.check_cuda(*flat)
+    return flat, shape, n
+
+
+def _g2_launch(counter, entry, operands, n_out):
+    flat, shape, n = _flat2(operands)
+    out = tuple(torch.empty_like(c) for c in flat[:n_out])
+    if n:
+        _build.launch(counter, entry, *(c.data_ptr() for c in flat + out), n)
+    return tuple(o.reshape(shape) for o in out)
+
+
+def g2_double(p):
+    """K9 double: CPU tensors take the plain version, CUDA tensors launch
+    ``kzg_g2_double`` (csrc/g2_point.cu)."""
+    if p[0].device.type == "cpu":
+        return g2_double_plain(p)
+    return _g2_launch("g2_double", "kzg_g2_double", tuple(p), 3)
+
+
+def g2_add(p, q):
+    """K9 add (exact, every exceptional lane): ``kzg_g2_add`` on CUDA tensors."""
+    if p[0].device.type == "cpu":
+        return g2_add_plain(p, q)
+    return _g2_launch("g2_add", "kzg_g2_add", tuple(p) + tuple(q), 3)
+
+
+def g2_madd(p, q_affine):
+    """K9 mixed add of a Jacobian p and an affine q (same shape):
+    ``kzg_g2_madd`` on CUDA tensors."""
+    if p[0].device.type == "cpu":
+        return g2_madd_plain(p, q_affine)
+    return _g2_launch("g2_madd", "kzg_g2_madd", tuple(p) + tuple(q_affine), 3)
+
+
+def g2_to_affine(p):
+    """Jacobian -> affine ((x, y), inf) over Fp2: one batched inversion of
+    the Z norms over every lane (fp2.inv). Infinity lanes return (0, 0)."""
+    X, Y, Z = p
+    zi = fp2.inv(Z)
+    zi2 = fp2.square(zi)
+    return (fp2.mul(X, zi2), fp2.mul(Y, fp2.mul(zi, zi2))), g2_is_inf(p)
 
 
 # ---------------------------------------------------------------------------
@@ -408,6 +596,39 @@ def g1_gen_affine(device, n: int = 1):
     """The generator as affine Montgomery words, broadcast to (12, n)."""
     gx, gy = (FP.tensor([c], device) for c in hm.G1_GEN)
     return gx.expand(FP.L, n).contiguous(), gy.expand(FP.L, n).contiguous()
+
+
+def g2_to_device(points, device):
+    """Host affine G2 points ((x0, x1), (y0, y1)) or None -> Jacobian
+    (12, 2, n) words."""
+    xs, ys, zs = [], [], []
+    for pt in points:
+        if pt is None:
+            xs.append((0, 0)); ys.append((0, 0)); zs.append((0, 0))
+        else:
+            xs.append(pt[0]); ys.append(pt[1]); zs.append((1, 0))
+    return tuple(fp2.tensor(v, device) for v in (xs, ys, zs))
+
+
+def g2_from_device(p) -> list:
+    """Jacobian (12, 2, *batch) words -> list of host affine G2 points (None
+    = infinity)."""
+    X, Y, Z = (fp2.to_ints(c) for c in p)
+    out = []
+    for x, y, z in zip(X, Y, Z):
+        if z == (0, 0):
+            out.append(None)
+            continue
+        zi = hm.fp2_inv(z)
+        zi2 = hm.fp2_sq(zi)
+        out.append((hm.fp2_mul(x, zi2), hm.fp2_mul(y, hm.fp2_mul(zi, zi2))))
+    return out
+
+
+def g2_gen_affine(device, n: int = 1):
+    """G2's generator as affine Montgomery words, broadcast to (12, 2, n)."""
+    gx, gy = (fp2.tensor([c], device) for c in hm.G2_GEN)
+    return gx.expand(FP.L, 2, n).contiguous(), gy.expand(FP.L, 2, n).contiguous()
 
 
 def fr_std_words(values, device) -> torch.Tensor:

@@ -1,20 +1,23 @@
-"""Fixed-generator scalar multiplication through window tables, and the G1
-powers-of-tau ceremony built on it.
+"""Fixed-generator scalar multiplication through window tables, for G1 and
+G2, and the G1 powers-of-tau ceremony built on it.
 
-Counterpart of the G1 half of ``kzg_tpu/ops/genmul.py:38-290``. With the
-base fixed to the generator G, the tables
+Counterpart of ``kzg_tpu/ops/genmul.py``. With the base fixed to a group's
+generator G, the tables
 
     T[w][d] = d 2^(8w) G        (w < 32 windows, d < 256 entries)
 
-are built once (seven batched mixed adds, K2, then one affine conversion),
-and then
+are built once per group and device (seven batched mixed adds, K2 for G1
+and K9 for G2, then one affine conversion), and then
 
     k G = sum_w T[w][digit_w(k)]
 
-is one fold of 32 table entries per scalar. The fold is kernel K5/K8
-(``csrc/gen_fold.cu``) on CUDA tensors and its plain version on CPU tensors.
-Entry d = 0 is the identity, stored as (0, 0): no affine point of
-y^2 = x^3 + 4 has x = y = 0, so the fold skips exactly the all-zero entries.
+is one fold of 32 table entries per scalar. G1's fold is kernel K5/K8
+(``csrc/gen_fold.cu``) on CUDA tensors and its plain version on CPU tensors;
+G2's is the JAX package's fold (``kzg_tpu/ops/genmul.py:179-202``): window
+0's entry as the start, then 31 mixed adds (K9) with the digit-0 lanes kept
+by a select. Entry d = 0 is the identity, stored as (0, 0): no affine point
+of either curve has x = y = 0, so the fold skips exactly the all-zero
+entries.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from . import _build
 from . import curve as cv
+from . import fp2
 from . import poly as polyops
 from .field import FP, FR
 from ..utils import hostmath as hm
@@ -40,52 +44,66 @@ GENMUL_TABLE_THRESHOLD = 512
 
 
 @functools.cache
-def _gen_pow2():
+def _gen_pow2(group=cv.G1):
     """The host-exact affine points 2^j G for j < 256."""
-    return tuple(hm.g1_pow2_multiples(hm.G1_GEN, GEN_WINDOW_BITS * GEN_WINDOWS))
+    gen, add = (hm.G1_GEN, hm.g1_add) if group == cv.G1 else (hm.G2_GEN, hm.g2_add)
+    out = [gen]
+    for _ in range(GEN_WINDOW_BITS * GEN_WINDOWS - 1):
+        out.append(add(out[-1], out[-1]))
+    return tuple(out)
 
 
-def _level_bases(k: int) -> list:
+def _level_bases(k: int, group=cv.G1) -> list:
     """Host-exact affine points [2^(8w + k) G for w < 32]."""
-    return [_gen_pow2()[GEN_WINDOW_BITS * w + k] for w in range(GEN_WINDOWS)]
+    return [_gen_pow2(group)[GEN_WINDOW_BITS * w + k] for w in range(GEN_WINDOWS)]
 
 
-def _build_tables(device):
-    """(tx, ty): (12, 32, 256) affine Montgomery words, entry d = 0 (0, 0).
+def _coord(group) -> tuple:
+    """The leading axes of a group's coordinate: (12,) for G1, (12, 2) for G2."""
+    return (FP.L,) if group == cv.G1 else (FP.L, 2)
+
+
+def _build_tables(device, group=cv.G1, madd=None):
+    """(tx, ty): (12, 32, 256) (G1) or (12, 2, 32, 256) (G2) affine
+    Montgomery words, entry d = 0 (0, 0).
 
     T[w][j + 2^k] = T[w][j] + 2^k base_w: one batched mixed add per bit level
-    (K2) over the 2^k entries built so far, as ``genmul.py:64-87``. The
-    madd's exceptional lanes are benign: T[w][0] = infinity takes the
-    (x2, y2, ONE) branch, and T[w][j] == 2^k base_w would need j == 2^k."""
-    bases = [FP.tensor([c for p in _level_bases(k) for c in p], device).view(FP.L, GEN_WINDOWS, 2)
-             for k in range(GEN_WINDOW_BITS)]
-    zero = torch.zeros(FP.L, GEN_WINDOWS, 1, dtype=torch.int32, device=device)
-    one = FP.const("ONE", device).view(FP.L, 1, 1).expand(FP.L, GEN_WINDOWS, 1)
+    (K2 for G1, K9 for G2, or ``madd`` if given) over the 2^k entries built
+    so far, as ``genmul.py:64-87``. The madd's exceptional lanes are benign:
+    T[w][0] = infinity takes the (x2, y2, ONE) branch, and T[w][j] == 2^k
+    base_w would need j == 2^k."""
+    g2 = group == cv.G2
+    coord = _coord(group)
+    to_words = fp2.tensor if g2 else FP.tensor
+    madd = madd or (cv.g2_madd if g2 else cv.g1_madd)
+    bases = [to_words([c for p in _level_bases(k, group) for c in p], device)
+             .view(*coord, GEN_WINDOWS, 2) for k in range(GEN_WINDOW_BITS)]
+    zero = torch.zeros(*coord, GEN_WINDOWS, 1, dtype=torch.int32, device=device)
+    one = (fp2.one if g2 else FP.one_like)(zero)
     acc = (torch.cat([zero, bases[0][..., :1]], -1), torch.cat([zero, bases[0][..., 1:]], -1),
            torch.cat([zero, one], -1))  # entries [0, 1] = [infinity, base]
     for k in range(1, GEN_WINDOW_BITS):
         width = acc[0].shape[-1]
-        q = tuple(bases[k][..., c : c + 1].expand(FP.L, GEN_WINDOWS, width) for c in (0, 1))
-        new = cv.g1_madd(acc, q)
+        q = tuple(bases[k][..., c : c + 1].expand(*coord, GEN_WINDOWS, width) for c in (0, 1))
+        new = madd(acc, q)
         acc = tuple(torch.cat([a, b], -1) for a, b in zip(acc, new))
-    (tx, ty), _ = cv.to_affine(acc)
+    (tx, ty), _ = (cv.g2_to_affine if g2 else cv.to_affine)(acc)
     return tx.contiguous(), ty.contiguous()
 
 
-_tables: dict[str, tuple] = {}
+_tables: dict[tuple, tuple] = {}  # (group, device) -> tables
 
 
-def gen_tables(device=None):
-    """The generator tables on ``device``, built on first use and kept."""
-    device = resolve_device(device)
-    key = str(device)
+def gen_tables(device=None, group=cv.G1):
+    """A group's generator tables on ``device``, built on first use and kept."""
+    key = (group, str(resolve_device(device)))
     if key not in _tables:
-        _tables[key] = _build_tables(device)
+        _tables[key] = _build_tables(torch.device(key[1]), group)
     return _tables[key]
 
 
-def tables_built(device=None) -> bool:
-    return str(resolve_device(device)) in _tables
+def tables_built(device=None, group=cv.G1) -> bool:
+    return (group, str(resolve_device(device))) in _tables
 
 
 def _digits8(k: torch.Tensor) -> torch.Tensor:
@@ -197,32 +215,57 @@ def fold_entries(xs, ys):
 # ---------------------------------------------------------------------------
 
 
-def mul_gen(k: torch.Tensor, tables=None):
+def fold_g2(tx, ty, digits, madd=None):
+    """G2's fold (``kzg_tpu/ops/genmul.py:179-202``): per lane i, window 0's
+    entry T[0][digits[0, i]] as the start (infinity where the digit is 0),
+    then acc + T[w][digits[w, i]] for w = 1 .. 31 by the mixed add (K9, or
+    ``madd`` if given), a select keeping acc where the digit is 0 (the madd
+    there takes the (0, 0) entry and its output is dropped). tx, ty
+    (12, 2, 32, 256); digits (32, n) int64. Returns (12, 2, n) Jacobian."""
+    madd = madd or cv.g2_madd
+    nz = digits != 0
+    x0, y0 = tx[:, :, 0, digits[0]], ty[:, :, 0, digits[0]]
+    acc = (x0, torch.where(nz[0], y0, 0), torch.where(nz[0], fp2.one(x0), 0))
+    for w in range(1, GEN_WINDOWS):
+        q = (tx[:, :, w, digits[w]], ty[:, :, w, digits[w]])
+        acc = cv.select(nz[w], madd(acc, q), acc)
+    return acc
+
+
+def mul_gen(k: torch.Tensor, tables=None, group=cv.G1):
     """[k] G for standard-form Fr words k (8, *batch): a Jacobian triple of
-    (12, *batch), through the window tables (built on k's device if not
-    given). The same group elements as the 256-step ladder."""
-    tx, ty = tables if tables is not None else gen_tables(k.device)
+    (12, *batch) (G1) or (12, 2, *batch) (G2) words, through the group's
+    window tables (built on k's device if not given). The same group
+    elements as the 256-step ladder."""
+    tx, ty = tables if tables is not None else gen_tables(k.device, group)
     batch = tuple(k.shape[1:])
     digits = _digits8(k).reshape(GEN_WINDOWS, math.prod(batch))
-    return tuple(c.reshape((FP.L,) + batch) for c in gen_fold(tx, ty, digits))
+    out = gen_fold(tx, ty, digits) if group == cv.G1 else fold_g2(tx, ty, digits)
+    return tuple(c.reshape(_coord(group) + batch) for c in out)
 
 
-def mul_gen_auto(k: torch.Tensor):
-    """[k] G through the tables when they exist on k's device or the batch
-    amortizes building them (GENMUL_TABLE_THRESHOLD), else through the plain
-    ladder. The same group elements either way."""
+def mul_gen_auto(k: torch.Tensor, group=cv.G1):
+    """[k] G through the group's tables when they exist on k's device or the
+    batch amortizes building them (GENMUL_TABLE_THRESHOLD), else through the
+    256-step ladder on the group's kernels. The same group elements either
+    way."""
     batch = tuple(k.shape[1:])
     nb = math.prod(batch)
-    if tables_built(k.device) or nb >= GENMUL_TABLE_THRESHOLD:
-        return mul_gen(k)
-    flat = k.reshape(FR.L, nb)
-    out = cv.mul_scalar_affine(cv.g1_gen_affine(k.device, nb), flat)
-    return tuple(c.reshape((FP.L,) + batch) for c in out)
+    if tables_built(k.device, group) or nb >= GENMUL_TABLE_THRESHOLD:
+        return mul_gen(k, group=group)
+    gen = cv.g1_gen_affine if group == cv.G1 else cv.g2_gen_affine
+    out = cv.mul_scalar_affine(gen(k.device, nb), k.reshape(FR.L, nb), group=group)
+    return tuple(c.reshape(_coord(group) + batch) for c in out)
 
 
 def mul_g1_gen(k: torch.Tensor):
     """[k] G1 (see mul_gen_auto)."""
-    return mul_gen_auto(k)
+    return mul_gen_auto(k, cv.G1)
+
+
+def mul_g2_gen(k: torch.Tensor):
+    """[k] G2 (see mul_gen_auto)."""
+    return mul_gen_auto(k, cv.G2)
 
 
 def chunked_srs_g1(s: int, n: int, chunk: int = 1 << 16, device=None):

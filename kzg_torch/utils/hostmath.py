@@ -3,10 +3,10 @@
 The port's own copy of what it needs from ``kzg_tpu/utils/hostmath.py`` (that
 module is jax-free, but importing it runs the jax-importing ``kzg_tpu``
 package): the curve constants, Fp2, the affine group law over Fp (G1) and Fp2
-(G2), the Fp and Fp2 square roots and ZCash-convention G1 compression and G2
-decompression with the subgroup checks. Used at the IO boundary (compress /
-decompress), to derive the kernels' Montgomery constants, and as the exact
-oracle in tests and in ``chip_smoke.py``.
+(G2), the Fp and Fp2 square roots and ZCash-convention compression and
+decompression of both groups with the subgroup checks. Used at the IO
+boundary (compress / decompress), to derive the kernels' Montgomery
+constants, and as the exact oracle in tests and in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,16 @@ B_G2 = (4, 4)  # 4 + 4u
 G1_GEN = (
     0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83FF97A1AEFFB3AF00ADB22C6BB,
     0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1,
+)
+G2_GEN = (
+    (
+        0x024AA2B2F08F0A91260805272DC51051C6E47AD4FA403B02B4510B647AE3D1770BAC0326A805BBEFD48056C8C121BDB8,
+        0x13E02B6052719F607DACD3A088274F65596BD0D09920B61AB5DA61BBDC7F5049334CF11213945D57E5AC7D055D042B7E,
+    ),
+    (
+        0x0CE5D527727D6E118CC9CDC6DA2E351AADFD9BAA8CBDD3A76D429A695160D12C923AC9CC3BACA289E193548608B82801,
+        0x0606C4A02EA734CC32ACD2B02BC28B99CB3E287E85A763AF267492AB572E99AB3F370D275CEC1DA1AAA9075FF05F79BE,
+    ),
 )
 
 
@@ -189,17 +199,20 @@ def g1_mul(p, k: int):
     return _affine_mul_unreduced(_FP_OPS, p, k % R)
 
 
-def g1_pow2_multiples(p, n: int) -> list:
-    """[2^j p for j < n]: one chain of n - 1 doublings (the generator
-    tables' level bases are 2^(8w + k) G for 256 exponents)."""
-    out = [p]
-    for _ in range(n - 1):
-        out.append(g1_add(out[-1], out[-1]))
-    return out
-
-
 def g1_neg(p):
     return None if p is None else (p[0], -p[1] % P)
+
+
+def g2_add(p, q):
+    return _affine_add(_FP2_OPS, p, q)
+
+
+def g2_mul(p, k: int):
+    return _affine_mul_unreduced(_FP2_OPS, p, k % R)
+
+
+def g2_neg(p):
+    return None if p is None else (p[0], fp2_neg(p[1]))
 
 
 def g1_is_on_curve(p) -> bool:
@@ -278,6 +291,19 @@ def g1_decompress(data: bytes):
     if not g1_in_subgroup(point):
         raise ValueError("Point not in the prime-order subgroup")
     return point
+
+
+def g2_compress(p) -> bytes:
+    """96 bytes: big-endian x1 then x0, flag bits in byte 0, the sign of y
+    by _fp2_sign."""
+    if p is None:
+        return bytes([_FLAG_COMPRESSED | _FLAG_INFINITY]) + bytes(95)
+    (x0, x1), y = p
+    data = bytearray(x1.to_bytes(48, "big") + x0.to_bytes(48, "big"))
+    data[0] |= _FLAG_COMPRESSED
+    if _fp2_sign(y):
+        data[0] |= _FLAG_SIGN
+    return bytes(data)
 
 
 def g2_decompress(data: bytes):

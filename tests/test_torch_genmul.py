@@ -195,10 +195,10 @@ def test_mul_gen_auto_routes_by_tables_and_size(monkeypatch):
     table build; at the threshold: the tables are built."""
     built = _tables()
     monkeypatch.setattr(genmul, "_tables", {})
-    monkeypatch.setattr(genmul, "_build_tables", lambda device: built)
+    monkeypatch.setattr(genmul, "_build_tables", lambda device, group: built)
     ladder = []
     monkeypatch.setattr(cv, "mul_scalar_affine",
-                        lambda p, k: ladder.append(k.shape) or genmul.mul_gen(k, built))
+                        lambda p, k, group: ladder.append(k.shape) or genmul.mul_gen(k, built))
     ks = [3, hm.R - 2, 0]
     k = FR.tensor(ks, "cpu", mont=False)
     want = [hm.g1_mul(hm.G1_GEN, v) if v else None for v in ks]

@@ -280,3 +280,58 @@ def test_batched_commit_launches_the_ladder_only(cuda):
     assert launches.get("ladder_msm") == 1
     assert not any(launches.get(k) for k in ("g1_double", "g1_madd", "g1_add"))
     assert c.affine() == hm.g1_mul(hm.G1_GEN, sum(a * b for a, b in zip(coeffs, base)) % hm.R)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1 << 16])
+def test_g2_point_kernels_match_plain(cuda, n):
+    """K9's double, add and madd against their plain versions (fp2 on the
+    card's FP.mul) on the case table of kzg_torch/utils/g2_cases.py (p, q
+    or both at infinity, P == Q, P == -Q, madd's first lane at infinity)
+    and seeded words: one lane, a partial block of 64, two whole blocks,
+    two and a lane, and the 2^16 setup's width; one launch each; the case
+    lanes against the host oracle."""
+    from kzg_torch.ops import _build
+    from kzg_torch.utils import g2_cases
+
+    p, q, qa = g2_cases.case_points(n, 90 + n % 13, cuda)
+    for op, kern, plain, args in (("double", cv.g2_double, cv.g2_double_plain, (p,)),
+                                  ("add", cv.g2_add, cv.g2_add_plain, (p, q)),
+                                  ("madd", cv.g2_madd, cv.g2_madd_plain, (p, qa))):
+        before = _build.LAUNCHES[f"g2_{op}"]
+        got = kern(*args)
+        assert _build.LAUNCHES[f"g2_{op}"] == before + 1
+        assert _same(got, plain(*args)), op
+        m = min(n, g2_cases.CASE_LANES)
+        aff = cv.g2_from_device(tuple(c[..., :m] for c in got))
+        for lane, want in g2_cases.oracle(90 + n % 13, op).items():
+            assert lane >= m or aff[lane] == want, (op, g2_cases.CASES[lane])
+
+
+def test_g2_wrappers_refuse_mismatched_operands(cuda):
+    p = tuple(torch.zeros(FP.L, 2, 4, dtype=torch.int32, device=cuda) for _ in range(3))
+    with pytest.raises(ValueError):
+        cv.g2_add(p, tuple(c[..., :3] for c in p))
+    with pytest.raises(TypeError):
+        cv.g2_double(tuple(c.long() for c in p))
+
+
+def test_setup_on_the_card_equals_golden(cuda, monkeypatch):
+    """generate_setup of 10 points from the golden secret on the card (the
+    ladder of each group on K2 and K9 without tables, then with them) gives
+    tests/golden/setup.json's bytes."""
+    import os
+
+    from kzg_torch import Scalar, generate_setup
+    from kzg_torch import artifacts as art
+    from kzg_torch.ops import genmul
+
+    with open(os.path.join(os.path.dirname(__file__), "golden", "setup.json")) as f:
+        want = f.read()
+    secret = Scalar.from_be_bytes(bytes(range(32)))
+    monkeypatch.setattr(genmul, "_tables", {})
+    for built in (False, True):
+        if built:
+            genmul.gen_tables(cuda, cv.G1)
+            genmul.gen_tables(cuda, cv.G2)
+        setup = generate_setup(secret, 10, device=cuda)
+        assert art.dumps([a.to_json() for a in setup]) == want, built
