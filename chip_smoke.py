@@ -132,10 +132,12 @@ square needs only the 78 distinct word products a_i a_k (i <= k) before the
 12 reduction rows: 2 * (78 + 12^2 + 12) = 468. The point formulas are counted
 in their cheapest published forms (M an Fp multiply, S a square): a point
 add 11M + 5S (add-2007-bl) = 8,940, a mixed add 7M + 4S (madd-2007-bl) =
-6,072, a doubling 2M + 5S (dbl-2009-l) = 3,540; over Fp2 (G2, K9) an M is
-three Fp multiplies (Karatsuba) and an S two (the complex square), so an
-add is 43 Fp multiplies (25,800), a mixed add 29 (17,400) and a doubling
-16 (9,600), and each moves 96 bytes a coordinate. A prefix sum of W points
+6,072, a doubling 2M + 5S (dbl-2009-l) = 3,540. Over Fp2 (G2, K9) an M is
+Karatsuba with lazy reduction (as blst's mul_mont_384x): three 12x12-word
+products and two Montgomery reductions, 2 * (3 * 12^2 + 2 * (12^2 + 12)) =
+1,488; an S is the complex square, two full Fp multiplies (1,200). So a G2
+add is 22,368, a mixed add 15,216 and a doubling 8,976, and each moves 96
+bytes a coordinate. A prefix sum of W points
 needs W - 1 adds (W - 2 when exclusive), whatever order a kernel adds in; a
 fold needs one mixed add per non-zero entry after a lane's first (the first
 is a copy), counted on the inputs of the run. The fused scan over P pairs in
@@ -199,8 +201,8 @@ FR_MUL_OPS = 2 * (2 * 8 * 8 + 8)
 G1_ADD_OPS = 11 * FP_MUL_OPS + 5 * FP_SQR_OPS
 G1_MADD_OPS = 7 * FP_MUL_OPS + 4 * FP_SQR_OPS
 G1_DBL_OPS = 2 * FP_MUL_OPS + 5 * FP_SQR_OPS
-FP2_MUL_OPS = 3 * FP_MUL_OPS  # Karatsuba: three Fp products
-FP2_SQR_OPS = 2 * FP_MUL_OPS  # the complex square: two
+FP2_MUL_OPS = 2 * (3 * 12 * 12 + 2 * (12 * 12 + 12))  # Karatsuba, two reductions
+FP2_SQR_OPS = 2 * FP_MUL_OPS  # the complex square: two Fp multiplies
 G2_ADD_OPS = 11 * FP2_MUL_OPS + 5 * FP2_SQR_OPS
 G2_MADD_OPS = 7 * FP2_MUL_OPS + 4 * FP2_SQR_OPS
 G2_DBL_OPS = 2 * FP2_MUL_OPS + 5 * FP2_SQR_OPS

@@ -23,8 +23,7 @@ from dataclasses import dataclass
 from .curves import G1Point, G2Point
 from .errors import CliError, SerializationError
 from .ops import codec
-from .ops import fp2
-from .ops.field import FP
+from .ops import curve as cv
 from .polynomial import Evaluation, Polynomial
 from .trusted_setup import SetupArtifact
 from .utils.device import resolve_device
@@ -88,13 +87,6 @@ def save_setup(artifacts: list[SetupArtifact], path: str = SETUP_ARTIFACTS_PATH)
 _BULK_LOAD_MIN = 64  # below this the per-point host path is cheaper than the device batches
 
 
-def _host_points(coords, inf, to_ints) -> list:
-    """Affine words (Z the Montgomery one or zero) -> host points, None at
-    infinity."""
-    return [None if i else p for p, i in zip(zip(to_ints(coords[0]), to_ints(coords[1])),
-                                              inf.tolist())]
-
-
 def load_setup(path: str = SETUP_ARTIFACTS_PATH, device=None) -> list[SetupArtifact]:
     """setup.json's artifacts. From ``_BULK_LOAD_MIN`` points on (on
     ``device``, the card unless asked): every entry's lengths checked
@@ -116,8 +108,9 @@ def load_setup(path: str = SETUP_ARTIFACTS_PATH, device=None) -> list[SetupArtif
     device = resolve_device(device)
     g1 = codec.g1_decompress_batch([bytes(a["g1"]) for a in raw], True, device)
     g2 = codec.g2_decompress_batch([bytes(a["g2"]) for a in raw], True, device)
-    g1_pts = _host_points(g1, FP.is_zero(g1[2]), FP.from_words_many)
-    g2_pts = _host_points(g2, fp2.is_zero(g2[2]), fp2.to_ints)
+    # the decompressed points are affine (Z the Montgomery one, or zero at infinity)
+    g1_pts = cv.G1.host_affine(g1[:2], cv.G1.is_inf(g1))
+    g2_pts = cv.G2.host_affine(g2[:2], cv.G2.is_inf(g2))
     return [SetupArtifact(G1Point.from_affine(p1), G2Point.from_affine(p2))
             for p1, p2 in zip(g1_pts, g2_pts)]
 

@@ -27,8 +27,8 @@
 //   spills nothing.
 //
 // Every add takes the operands the plain version (ops/msm.py
-// bucket_reduce_plain) gives it, in the same order: g1_add(p, q) and
-// g1_add(q, p) give different words for the same point, so this order is
+// bucket_reduce_plain) gives it, in the same order: jac_add(p, q) and
+// jac_add(q, p) give different words for the same point, so this order is
 // what makes the output equal the plain version's word for word. Empty
 // buckets make V_b equal to its neighbours, so leaves that are equal (the
 // add doubles) or infinity are common inputs here, not corner cases; the
@@ -76,7 +76,7 @@ __device__ __forceinline__ void bucket_v(const BucketIn& in, int b, jac_t* v, ja
   *v = load_jac(in.ux, in.uy, in.uz, in.nb, in.slot[b]);
   *o = load_jac(in.ox, in.oy, in.oz, in.C, in.chunk[b]);
   asm volatile("" ::: "memory");
-  *v = g1_add<BrOps>(*v, *o);
+  *v = jac_add<BrOps>(*v, *o);
 }
 
 // A halving tree over pts[0, 2 half), in place: at distance s = half, ..,
@@ -87,7 +87,7 @@ __device__ __forceinline__ void block_tree(jac_t* pts, int half, int t) {
 #pragma unroll 1
   for (int s = half; s >= 1; s >>= 1) {
     __syncthreads();
-    if (t < s) pts[t] = g1_add<BrOps>(pts[t], pts[t + s]);
+    if (t < s) pts[t] = jac_add<BrOps>(pts[t], pts[t + s]);
   }
   __syncthreads();
 }
@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(kLeaves) bucket_reduce_kernel(BucketIn in, jac
   // L_b = V_top + (-V_b)
   pts[t].y = fsub(zero<12>(), pts[t].y);
   asm volatile("" ::: "memory");
-  pts[t] = g1_add<BrOps>(top[0], pts[t]);
+  pts[t] = jac_add<BrOps>(top[0], pts[t]);
   block_tree(pts, kLeaves / 2, t);
   if (t == 0) {
     scratch[blockIdx.x] = pts[0];

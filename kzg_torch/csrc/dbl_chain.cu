@@ -9,7 +9,7 @@
 //
 // Replaces kzg_tpu/ops/pallas_msm.py double_chain, which runs one doubling
 // per grid step with the point held in VMEM scratch. Here a thread loads its
-// point once, runs g1.cuh's g1_double (dbl-2009-l, 2M + 5S) in
+// point once, runs g1.cuh's jac_double (dbl-2009-l, 2M + 5S) in
 // registers and writes each window once; any lane count works. With z ==
 // nullptr the input is affine and z is the Montgomery one.
 //
@@ -34,10 +34,10 @@ __global__ void __launch_bounds__(kChainThreads) dbl_chain_kernel(const u32* x, 
   p.y = load<12>(y, n, i);
   p.z = z == nullptr ? fp_one() : load<12>(z, n, i);
   const long long stride = (long long)windows * n;
-  for (int s = 0; s < first; s++) p = g1_double(p);
+  for (int s = 0; s < first; s++) p = jac_double(p);
   store_jac(ox, oy, oz, stride, i, p);
   for (int k = 1; k < windows; k++) {
-    for (int s = 0; s < steps; s++) p = g1_double(p);
+    for (int s = 0; s < steps; s++) p = jac_double(p);
     store_jac(ox, oy, oz, stride, (long long)k * n + i, p);
   }
 }

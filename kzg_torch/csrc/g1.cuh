@@ -1,7 +1,9 @@
-// G1 Jacobian group law over Fp for sm_90a: device functions shared by the
-// point kernels (g1_point.cu), the bucket scan (scan_madd.cu), the point
-// prefix scan (hs_scan.cu), the bucket reduction (bucket_reduce.cu) and the
-// batched-affine MSM (ladder_msm.cu).
+// Jacobian group law for sm_90a, over Fp (G1) and, with g2.cuh's Fp2Ops,
+// over Fp2 (G2): device functions shared by the point kernels (g1_point.cu,
+// g2_point.cu), the bucket scan (scan_madd.cu), the point prefix scan
+// (hs_scan.cu), the bucket reduction (bucket_reduce.cu), the batched-affine
+// MSM (ladder_msm.cu), the window fold (gen_fold.cu) and the doubling chain
+// (dbl_chain.cu).
 //
 // The formulas are term for term those of kzg_tpu/ops/curve.py
 // (JacobianCurve.double / add / madd) and kzg_tpu/ops/pallas_curve.py
@@ -20,46 +22,20 @@
 
 namespace kzg {
 
-struct jac_t {
-  fp_t x, y, z;
+// A Jacobian point over the element type E: fp_t for G1, fp2_t for G2
+// (g2.cuh).
+template <class E>
+struct jac_of {
+  E x, y, z;
 };
+using jac_t = jac_of<fp_t>;
 
 __device__ __forceinline__ fp_t fmul(const fp_t& a, const fp_t& b) { return mont_mul<12>(a, b); }
 __device__ __forceinline__ fp_t fsqr(const fp_t& a) { return mont_sqr<12>(a); }
-
-// How the point formulas multiply (the Ops of g1_double, g1_add and g1_madd).
-// FieldInline, the default: every multiply and square is its own copy of
-// the carry chains (16 copies of about 640 instructions an add), more than
-// an SM's instruction caches hold, so a warp that runs adds one after
-// another waits on instruction fetch. FieldCalled: one out-of-line copy of each, shared by
-// every call site, arguments in registers; a chain of dependent adds runs
-// in well under half the time (PERF.md, K4). Same words either way.
-struct FieldInline {
-  static __device__ __forceinline__ fp_t mul(const fp_t& a, const fp_t& b) { return fmul(a, b); }
-  static __device__ __forceinline__ fp_t sqr(const fp_t& a) { return fsqr(a); }
-};
-static __device__ __noinline__ fp_t fmul_called(fp_t a, fp_t b) { return mont_mul<12>(a, b); }
-static __device__ __noinline__ fp_t fsqr_called(fp_t a) { return mont_sqr<12>(a); }
-struct FieldCalled {
-  static __device__ __forceinline__ fp_t mul(const fp_t& a, const fp_t& b) {
-    return fmul_called(a, b);
-  }
-  static __device__ __forceinline__ fp_t sqr(const fp_t& a) { return fsqr_called(a); }
-};
 __device__ __forceinline__ fp_t fadd(const fp_t& a, const fp_t& b) { return add<12>(a, b); }
 __device__ __forceinline__ fp_t fsub(const fp_t& a, const fp_t& b) { return sub<12>(a, b); }
 __device__ __forceinline__ fp_t fdbl(const fp_t& a) { return dbl<12>(a); }
 __device__ __forceinline__ bool fzero(const fp_t& a) { return is_zero<12>(a); }
-
-__device__ __forceinline__ jac_t jac_inf() {
-  jac_t r;
-  r.x = zero<12>();
-  r.y = zero<12>();
-  r.z = zero<12>();
-  return r;
-}
-
-__device__ __forceinline__ bool jac_is_inf(const jac_t& p) { return fzero(p.z); }
 
 __device__ __forceinline__ fp_t fsel(bool c, const fp_t& a, const fp_t& b) {
   fp_t r;
@@ -68,119 +44,189 @@ __device__ __forceinline__ fp_t fsel(bool c, const fp_t& a, const fp_t& b) {
   return r;
 }
 
+// The point formulas below take their arithmetic from Ops: the element type
+// (Ops::elem), its multiply and square, and its linear operations, selects,
+// zero test and constants. For G1, FpLinear's and one of:
+// FieldInline, the default: every multiply and square is its own copy of
+// the carry chains (16 copies of about 640 instructions an add), more than
+// an SM's instruction caches hold, so a warp that runs adds one after
+// another waits on instruction fetch. FieldCalled: one out-of-line copy of each, shared by
+// every call site, arguments in registers; a chain of dependent adds runs
+// in well under half the time (PERF.md, K4). Same words either way. For
+// G2, g2.cuh's Fp2Ops over one of them.
+struct FpLinear {
+  using elem = fp_t;
+  static __device__ __forceinline__ fp_t add(const fp_t& a, const fp_t& b) { return fadd(a, b); }
+  static __device__ __forceinline__ fp_t sub(const fp_t& a, const fp_t& b) { return fsub(a, b); }
+  static __device__ __forceinline__ fp_t dbl(const fp_t& a) { return fdbl(a); }
+  static __device__ __forceinline__ bool is_zero(const fp_t& a) { return fzero(a); }
+  static __device__ __forceinline__ fp_t sel(bool c, const fp_t& a, const fp_t& b) {
+    return fsel(c, a, b);
+  }
+  static __device__ __forceinline__ fp_t zero() { return kzg::zero<12>(); }
+  static __device__ __forceinline__ fp_t one() { return fp_one(); }
+};
+struct FieldInline : FpLinear {
+  static __device__ __forceinline__ fp_t mul(const fp_t& a, const fp_t& b) { return fmul(a, b); }
+  static __device__ __forceinline__ fp_t sqr(const fp_t& a) { return fsqr(a); }
+};
+static __device__ __noinline__ fp_t fmul_called(fp_t a, fp_t b) { return mont_mul<12>(a, b); }
+static __device__ __noinline__ fp_t fsqr_called(fp_t a) { return mont_sqr<12>(a); }
+struct FieldCalled : FpLinear {
+  static __device__ __forceinline__ fp_t mul(const fp_t& a, const fp_t& b) {
+    return fmul_called(a, b);
+  }
+  static __device__ __forceinline__ fp_t sqr(const fp_t& a) { return fsqr_called(a); }
+};
+
+// Infinity (the zero words), its test and a select, over Ops's element.
+template <class Ops, class P>
+__device__ __forceinline__ P pt_inf() {
+  return P{Ops::zero(), Ops::zero(), Ops::zero()};
+}
+
+template <class Ops, class P>
+__device__ __forceinline__ bool pt_is_inf(const P& p) {
+  return Ops::is_zero(p.z);
+}
+
+template <class Ops, class P>
+__device__ __forceinline__ P pt_sel(bool c, const P& a, const P& b) {
+  return P{Ops::sel(c, a.x, b.x), Ops::sel(c, a.y, b.y), Ops::sel(c, a.z, b.z)};
+}
+
+__device__ __forceinline__ jac_t jac_inf() { return pt_inf<FpLinear, jac_t>(); }
+__device__ __forceinline__ bool jac_is_inf(const jac_t& p) { return pt_is_inf<FpLinear>(p); }
 __device__ __forceinline__ jac_t jsel(bool c, const jac_t& a, const jac_t& b) {
-  jac_t r;
-  r.x = fsel(c, a.x, b.x);
-  r.y = fsel(c, a.y, b.y);
-  r.z = fsel(c, a.z, b.z);
-  return r;
+  return pt_sel<FpLinear>(c, a, b);
 }
 
 // dbl-2009-l (a = 0): 2M + 5S. Maps infinity to infinity.
-template <class Ops = FieldInline>
-__device__ __forceinline__ jac_t g1_double(const jac_t& p) {
-  const fp_t A = Ops::sqr(p.x);
-  const fp_t B = Ops::sqr(p.y);
-  const fp_t C = Ops::sqr(B);
-  const fp_t xb = fadd(p.x, B);
-  const fp_t t = Ops::sqr(xb);
-  const fp_t D = fdbl(fsub(fsub(t, A), C));
-  const fp_t E = fadd(fdbl(A), A);
-  const fp_t F = Ops::sqr(E);
-  jac_t r;
-  r.x = fsub(F, fdbl(D));
-  const fp_t eightC = fdbl(fdbl(fdbl(C)));
-  r.y = fsub(Ops::mul(E, fsub(D, r.x)), eightC);
-  r.z = fdbl(Ops::mul(p.y, p.z));
+template <class Ops = FieldInline, class P = jac_of<typename Ops::elem>>
+__device__ __forceinline__ P jac_double(const P& p) {
+  using El = typename Ops::elem;
+  const El A = Ops::sqr(p.x);
+  const El B = Ops::sqr(p.y);
+  const El C = Ops::sqr(B);
+  const El xb = Ops::add(p.x, B);
+  const El t = Ops::sqr(xb);
+  const El D = Ops::dbl(Ops::sub(Ops::sub(t, A), C));
+  const El E = Ops::add(Ops::dbl(A), A);
+  const El F = Ops::sqr(E);
+  P r;
+  r.x = Ops::sub(F, Ops::dbl(D));
+  const El eightC = Ops::dbl(Ops::dbl(Ops::dbl(C)));
+  r.y = Ops::sub(Ops::mul(E, Ops::sub(D, r.x)), eightC);
+  r.z = Ops::dbl(Ops::mul(p.y, p.z));
   return r;
+}
+
+// The equal-x lanes' doubling (P == Q): out becomes 2 p where need. With
+// kWarp false, a branch of the lanes that need it (rare; the warp diverges
+// only then). With kWarp true, computed by a whole warp that has such a lane
+// (__any_sync): every thread of the warp must reach it.
+template <class Ops, bool kWarp, class P>
+__device__ __forceinline__ void double_where(bool need, const P& p, P& out) {
+  if (kWarp) {
+    if (__any_sync(0xffffffffu, need)) {
+      const P d = jac_double<Ops>(p);
+      if (need) out = d;
+    }
+  } else if (need) {
+    out = jac_double<Ops>(p);
+  }
 }
 
 // add-2007-bl with the exceptional lanes: 12M + 4S (Z3 as Z1 Z2 2H, as the JAX
 // package computes it; the published form's square trick makes it 11M + 5S).
-template <class Ops = FieldInline>
-__device__ __forceinline__ jac_t g1_add(const jac_t& p, const jac_t& q) {
-  const fp_t Z1Z1 = Ops::sqr(p.z);
-  const fp_t Z2Z2 = Ops::sqr(q.z);
-  const fp_t U1 = Ops::mul(p.x, Z2Z2);
-  const fp_t U2 = Ops::mul(q.x, Z1Z1);
-  const fp_t S1 = Ops::mul(p.y, Ops::mul(q.z, Z2Z2));
-  const fp_t S2 = Ops::mul(q.y, Ops::mul(p.z, Z1Z1));
-  const fp_t H = fsub(U2, U1);
-  const fp_t H2 = fdbl(H);
-  const fp_t I = Ops::sqr(H2);
-  const fp_t J = Ops::mul(H, I);
-  const fp_t dS = fsub(S2, S1);
-  const fp_t r = fdbl(dS);
-  const fp_t V = Ops::mul(U1, I);
-  jac_t out;
-  out.x = fsub(fsub(Ops::sqr(r), J), fdbl(V));
-  out.y = fsub(Ops::mul(r, fsub(V, out.x)), fdbl(Ops::mul(S1, J)));
+// The equal-x tests are taken as soon as H and dS exist, so that U2, S2 and
+// dS do not stay live across the later multiplies: over Fp2, taken after
+// the formula, they made K9's add spill (scripts/g2_point_probe.py).
+template <class Ops = FieldInline, bool kWarp = false, class P = jac_of<typename Ops::elem>>
+__device__ __forceinline__ P jac_add(const P& p, const P& q) {
+  using El = typename Ops::elem;
+  const El Z1Z1 = Ops::sqr(p.z);
+  const El Z2Z2 = Ops::sqr(q.z);
+  const El U1 = Ops::mul(p.x, Z2Z2);
+  const El H = Ops::sub(Ops::mul(q.x, Z1Z1), U1);
+  const bool same_x = Ops::is_zero(H);
+  const El S1 = Ops::mul(p.y, Ops::mul(q.z, Z2Z2));
+  const El dS = Ops::sub(Ops::mul(q.y, Ops::mul(p.z, Z1Z1)), S1);
+  const bool same_y = Ops::is_zero(dS);
+  const El H2 = Ops::dbl(H);
+  const El I = Ops::sqr(H2);
+  const El J = Ops::mul(H, I);
+  const El r = Ops::dbl(dS);
+  const El V = Ops::mul(U1, I);
+  P out;
+  out.x = Ops::sub(Ops::sub(Ops::sqr(r), J), Ops::dbl(V));
+  out.y = Ops::sub(Ops::mul(r, Ops::sub(V, out.x)), Ops::dbl(Ops::mul(S1, J)));
   out.z = Ops::mul(Ops::mul(p.z, q.z), H2);
-
-  const bool same_x = fzero(H);
-  const bool same_y = fzero(dS);
-  if (same_x && same_y) out = g1_double<Ops>(p);
-  out = jsel(same_x && !same_y, jac_inf(), out);
-  out = jsel(jac_is_inf(p), q, out);
-  out = jsel(jac_is_inf(q), p, out);
+  double_where<Ops, kWarp>(same_x && same_y, p, out);
+  out = pt_sel<Ops>(same_x && !same_y, pt_inf<Ops, P>(), out);
+  out = pt_sel<Ops>(pt_is_inf<Ops>(p), q, out);
+  out = pt_sel<Ops>(pt_is_inf<Ops>(q), p, out);
   return out;
 }
 
 // madd-2007-bl core (Z2 = 1): 8M + 3S (I as (2H)^2 and Z3 as 2H Z1; the
 // published form is 7M + 4S). Returns the formula's output and the
 // two equality tests the exceptional lanes need.
-template <class Ops = FieldInline>
-__device__ __forceinline__ jac_t g1_madd_core(const jac_t& p, const fp_t& x2, const fp_t& y2,
-                                              bool& same_x, bool& same_y) {
-  const fp_t Z1Z1 = Ops::sqr(p.z);
-  const fp_t U2 = Ops::mul(x2, Z1Z1);
-  const fp_t S2 = Ops::mul(y2, Ops::mul(p.z, Z1Z1));
-  const fp_t H = fsub(U2, p.x);
-  const fp_t H2 = fdbl(H);
-  const fp_t I = Ops::sqr(H2);
-  const fp_t J = Ops::mul(H, I);
-  const fp_t dS = fsub(S2, p.y);
-  const fp_t r = fdbl(dS);
-  const fp_t V = Ops::mul(p.x, I);
-  jac_t out;
-  out.x = fsub(fsub(Ops::sqr(r), J), fdbl(V));
-  out.y = fsub(Ops::mul(r, fsub(V, out.x)), fdbl(Ops::mul(p.y, J)));
+template <class Ops = FieldInline, class P = jac_of<typename Ops::elem>,
+          class El = typename Ops::elem>
+__device__ __forceinline__ P jac_madd_core(const P& p, const El& x2, const El& y2, bool& same_x,
+                                           bool& same_y) {
+  const El Z1Z1 = Ops::sqr(p.z);
+  const El U2 = Ops::mul(x2, Z1Z1);
+  const El S2 = Ops::mul(y2, Ops::mul(p.z, Z1Z1));
+  const El H = Ops::sub(U2, p.x);
+  const El H2 = Ops::dbl(H);
+  const El I = Ops::sqr(H2);
+  const El J = Ops::mul(H, I);
+  const El dS = Ops::sub(S2, p.y);
+  const El r = Ops::dbl(dS);
+  const El V = Ops::mul(p.x, I);
+  P out;
+  out.x = Ops::sub(Ops::sub(Ops::sqr(r), J), Ops::dbl(V));
+  out.y = Ops::sub(Ops::mul(r, Ops::sub(V, out.x)), Ops::dbl(Ops::mul(p.y, J)));
   out.z = Ops::mul(H2, p.z);
-  same_x = fzero(H);
-  same_y = fzero(dS);
+  same_x = Ops::is_zero(H);
+  same_y = Ops::is_zero(dS);
   return out;
 }
 
 // Exact mixed add: P == Q doubles, P == -Q gives infinity, P = infinity
 // gives (x2, y2, ONE_MONT) (curve.py:163-169). (x2, y2) must not be infinity.
-template <class Ops = FieldInline>
-__device__ __forceinline__ jac_t g1_madd(const jac_t& p, const fp_t& x2, const fp_t& y2) {
+template <class Ops = FieldInline, bool kWarp = false, class P = jac_of<typename Ops::elem>,
+          class El = typename Ops::elem>
+__device__ __forceinline__ P jac_madd(const P& p, const El& x2, const El& y2) {
   bool same_x, same_y;
-  jac_t out = g1_madd_core<Ops>(p, x2, y2, same_x, same_y);
-  if (same_x && same_y) out = g1_double<Ops>(p);
-  out = jsel(same_x && !same_y, jac_inf(), out);
-  jac_t q;
+  P out = jac_madd_core<Ops>(p, x2, y2, same_x, same_y);
+  double_where<Ops, kWarp>(same_x && same_y, p, out);
+  out = pt_sel<Ops>(same_x && !same_y, pt_inf<Ops, P>(), out);
+  P q;
   q.x = x2;
   q.y = y2;
-  q.z = fp_one();
-  return jsel(jac_is_inf(p), q, out);
+  q.z = Ops::one();
+  return pt_sel<Ops>(pt_is_inf<Ops>(p), q, out);
 }
 
 // The 11-mul mixed add without the inline doubling (_madd_pt_fast): a lane
 // with P == Q (and P finite) sets needs_double and its output is not the sum;
-// every other lane equals g1_madd's output bit for bit.
-template <class Ops = FieldInline>
-__device__ __forceinline__ jac_t g1_madd_fast(const jac_t& p, const fp_t& x2, const fp_t& y2,
-                                              bool& needs_double) {
+// every other lane equals jac_madd's output bit for bit.
+template <class Ops = FieldInline, class P = jac_of<typename Ops::elem>,
+          class El = typename Ops::elem>
+__device__ __forceinline__ P jac_madd_fast(const P& p, const El& x2, const El& y2,
+                                           bool& needs_double) {
   bool same_x, same_y;
-  jac_t out = g1_madd_core<Ops>(p, x2, y2, same_x, same_y);
-  out = jsel(same_x && !same_y, jac_inf(), out);
-  const bool z1_inf = jac_is_inf(p);
-  jac_t q;
+  P out = jac_madd_core<Ops>(p, x2, y2, same_x, same_y);
+  out = pt_sel<Ops>(same_x && !same_y, pt_inf<Ops, P>(), out);
+  const bool z1_inf = pt_is_inf<Ops>(p);
+  P q;
   q.x = x2;
   q.y = y2;
-  q.z = fp_one();
-  out = jsel(z1_inf, q, out);
+  q.z = Ops::one();
+  out = pt_sel<Ops>(z1_inf, q, out);
   needs_double = same_x && same_y && !z1_inf;
   return out;
 }

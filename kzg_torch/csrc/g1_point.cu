@@ -17,7 +17,7 @@ __global__ void __launch_bounds__(128) g1_double_kernel(const u32* x, const u32*
                                                         u32* ox, u32* oy, u32* oz, int n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  store_jac(ox, oy, oz, n, i, g1_double(load_jac(x, y, z, n, i)));
+  store_jac(ox, oy, oz, n, i, jac_double(load_jac(x, y, z, n, i)));
 }
 
 __global__ void __launch_bounds__(128) g1_add_kernel(const u32* x1, const u32* y1, const u32* z1,
@@ -27,7 +27,7 @@ __global__ void __launch_bounds__(128) g1_add_kernel(const u32* x1, const u32* y
   if (i >= n) return;
   const jac_t p = load_jac(x1, y1, z1, n, i);
   const jac_t q = load_jac(x2, y2, z2, n, i);
-  store_jac(ox, oy, oz, n, i, g1_add(p, q));
+  store_jac(ox, oy, oz, n, i, jac_add(p, q));
 }
 
 // need == nullptr: exact madd. Otherwise the 11-mul fast madd, with the
@@ -42,10 +42,10 @@ __global__ void __launch_bounds__(128) g1_madd_kernel(const u32* x1, const u32* 
   const fp_t qx = load<12>(x2, n, i);
   const fp_t qy = load<12>(y2, n, i);
   if (need == nullptr) {
-    store_jac(ox, oy, oz, n, i, g1_madd(p, qx, qy));
+    store_jac(ox, oy, oz, n, i, jac_madd(p, qx, qy));
   } else {
     bool nd;
-    store_jac(ox, oy, oz, n, i, g1_madd_fast(p, qx, qy, nd));
+    store_jac(ox, oy, oz, n, i, jac_madd_fast(p, qx, qy, nd));
     need[i] = nd ? 1 : 0;
   }
 }

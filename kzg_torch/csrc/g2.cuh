@@ -1,23 +1,13 @@
-// G2 Jacobian group law over Fp2 = Fp[u] / (u^2 + 1) for sm_90a: the device
-// functions of K9 (g2_point.cu).
-//
-// The formulas are term for term those of kzg_tpu/ops/curve.py
-// (JacobianCurve.double / add / madd over ops/fp2.py): dbl-2009-l,
-// add-2007-bl, madd-2007-bl, with the same exceptional lanes applied in the
-// same order. Every field operation is canonical, so the outputs equal the
-// JAX package's and the plain versions' (kzg_torch/ops/curve.py g2_*_plain)
-// bit for bit, including the coordinates of points at infinity.
+// Fp2 = Fp[u] / (u^2 + 1) for sm_90a: the element of G2's coordinates and
+// Fp2Ops, the arithmetic g1.cuh's point formulas take for G2 (K9,
+// g2_point.cu).
 //
 // An Fp2 multiply is three Fp products (Karatsuba), a square two (the
-// complex square), each through Ops (g1.cuh): FieldCalled keeps one
-// out-of-line copy of the multiply, which a chain of dependent products
-// runs in well under half the time of inlined copies (instruction fetch;
-// PERF.md, K4 and K5). A G2 point is 72 words, twice G1's, so the kernels
-// keep their operands in shared memory and only the formula's temporaries
-// in registers. The doubling that add and madd need where P == Q is
-// computed only by a warp with such a lane (__any_sync), so every thread
-// of a warp must reach it: the kernels run lanes past n on zero words and
-// do not store them.
+// complex square), as kzg_tpu/ops/fp2.py computes them, each through the
+// Fp multiply of Base (g1.cuh's FieldCalled or FieldInline). Every
+// operation is canonical, so G2's outputs equal the JAX package's and the
+// plain versions' (kzg_torch/ops/curve.py g2_*_plain) bit for bit,
+// including the coordinates of points at infinity.
 #pragma once
 
 #include "g1.cuh"
@@ -28,130 +18,43 @@ struct fp2_t {
   fp_t c0, c1;
 };
 
-struct jac2_t {
-  fp2_t x, y, z;
-};
+using jac2_t = jac_of<fp2_t>;
 
-__device__ __forceinline__ fp2_t f2add(const fp2_t& a, const fp2_t& b) {
-  return fp2_t{fadd(a.c0, b.c0), fadd(a.c1, b.c1)};
-}
-__device__ __forceinline__ fp2_t f2sub(const fp2_t& a, const fp2_t& b) {
-  return fp2_t{fsub(a.c0, b.c0), fsub(a.c1, b.c1)};
-}
-__device__ __forceinline__ fp2_t f2dbl(const fp2_t& a) { return fp2_t{fdbl(a.c0), fdbl(a.c1)}; }
-__device__ __forceinline__ bool f2zero(const fp2_t& a) { return fzero(a.c0) && fzero(a.c1); }
-
-// Karatsuba: v0 = a0 b0, v1 = a1 b1, v2 = (a0 + a1)(b0 + b1);
-// c0 = v0 - v1, c1 = v2 - (v0 + v1) (u^2 = -1).
-template <class Ops>
-__device__ __forceinline__ fp2_t f2mul(const fp2_t& a, const fp2_t& b) {
-  const fp_t v0 = Ops::mul(a.c0, b.c0);
-  const fp_t v1 = Ops::mul(a.c1, b.c1);
-  const fp_t v2 = Ops::mul(fadd(a.c0, a.c1), fadd(b.c0, b.c1));
-  return fp2_t{fsub(v0, v1), fsub(v2, fadd(v0, v1))};
-}
-
-// c0 = (a0 + a1)(a0 - a1), c1 = 2 a0 a1.
-template <class Ops>
-__device__ __forceinline__ fp2_t f2sqr(const fp2_t& a) {
-  return fp2_t{Ops::mul(fadd(a.c0, a.c1), fsub(a.c0, a.c1)), Ops::mul(fdbl(a.c0), a.c1)};
-}
-
-__device__ __forceinline__ fp2_t f2sel(bool c, const fp2_t& a, const fp2_t& b) {
-  return fp2_t{fsel(c, a.c0, b.c0), fsel(c, a.c1, b.c1)};
-}
-
-__device__ __forceinline__ fp2_t f2zero_elem() { return fp2_t{zero<12>(), zero<12>()}; }
-
-__device__ __forceinline__ jac2_t jac2_inf() {
-  return jac2_t{f2zero_elem(), f2zero_elem(), f2zero_elem()};
-}
-
-__device__ __forceinline__ bool jac2_is_inf(const jac2_t& p) { return f2zero(p.z); }
-
-__device__ __forceinline__ jac2_t j2sel(bool c, const jac2_t& a, const jac2_t& b) {
-  return jac2_t{f2sel(c, a.x, b.x), f2sel(c, a.y, b.y), f2sel(c, a.z, b.z)};
-}
-
-// dbl-2009-l (a = 0): 2M + 5S. Maps infinity to infinity.
-template <class Ops>
-__device__ __forceinline__ jac2_t g2_double(const jac2_t& p) {
-  const fp2_t A = f2sqr<Ops>(p.x);
-  const fp2_t B = f2sqr<Ops>(p.y);
-  const fp2_t C = f2sqr<Ops>(B);
-  const fp2_t t = f2sqr<Ops>(f2add(p.x, B));
-  const fp2_t D = f2dbl(f2sub(f2sub(t, A), C));
-  const fp2_t E = f2add(f2dbl(A), A);
-  jac2_t r;
-  r.x = f2sub(f2sqr<Ops>(E), f2dbl(D));
-  r.y = f2sub(f2mul<Ops>(E, f2sub(D, r.x)), f2dbl(f2dbl(f2dbl(C))));
-  r.z = f2dbl(f2mul<Ops>(p.y, p.z));
-  return r;
-}
-
-// The equal-x lanes of add and madd: P == Q doubles p, P == -Q gives the
-// zero words of infinity. The doubling runs only in a warp that has such a
-// lane (a warp-uniform branch); every thread of the warp must be here.
-template <class Ops>
-__device__ __forceinline__ jac2_t g2_equal_x(const jac2_t& p, const jac2_t& out, bool same_x,
-                                             bool same_y) {
-  jac2_t r = out;
-  const bool need = same_x && same_y;
-  if (__any_sync(0xffffffffu, need)) {
-    const jac2_t d = g2_double<Ops>(p);
-    if (need) r = d;
+template <class Base>
+struct Fp2Ops {
+  using elem = fp2_t;
+  // Karatsuba: v0 = a0 b0, v1 = a1 b1, v2 = (a0 + a1)(b0 + b1);
+  // c0 = v0 - v1, c1 = v2 - (v0 + v1) (u^2 = -1).
+  static __device__ __forceinline__ fp2_t mul(const fp2_t& a, const fp2_t& b) {
+    const fp_t v0 = Base::mul(a.c0, b.c0);
+    const fp_t v1 = Base::mul(a.c1, b.c1);
+    const fp_t v2 = Base::mul(fadd(a.c0, a.c1), fadd(b.c0, b.c1));
+    return fp2_t{fsub(v0, v1), fsub(v2, fadd(v0, v1))};
   }
-  return j2sel(same_x && !same_y, jac2_inf(), r);
-}
-
-// add-2007-bl with the exceptional lanes: 12M + 4S over Fp2 (Z3 as Z1 Z2 2H,
-// as the JAX package computes it). A lane with p at infinity takes q, then
-// one with q at infinity takes p (p when both are).
-template <class Ops>
-__device__ __forceinline__ jac2_t g2_add(const jac2_t& p, const jac2_t& q) {
-  const fp2_t Z1Z1 = f2sqr<Ops>(p.z);
-  const fp2_t Z2Z2 = f2sqr<Ops>(q.z);
-  const fp2_t U1 = f2mul<Ops>(p.x, Z2Z2);
-  const fp2_t H = f2sub(f2mul<Ops>(q.x, Z1Z1), U1);
-  const fp2_t S1 = f2mul<Ops>(p.y, f2mul<Ops>(q.z, Z2Z2));
-  const fp2_t dS = f2sub(f2mul<Ops>(q.y, f2mul<Ops>(p.z, Z1Z1)), S1);
-  const bool same_x = f2zero(H);
-  const bool same_y = f2zero(dS);
-  const fp2_t I = f2sqr<Ops>(f2dbl(H));
-  const fp2_t J = f2mul<Ops>(H, I);
-  const fp2_t V = f2mul<Ops>(U1, I);
-  const fp2_t r = f2dbl(dS);
-  jac2_t out;
-  out.x = f2sub(f2sub(f2sqr<Ops>(r), J), f2dbl(V));
-  out.y = f2sub(f2mul<Ops>(r, f2sub(V, out.x)), f2dbl(f2mul<Ops>(S1, J)));
-  out.z = f2mul<Ops>(f2mul<Ops>(p.z, q.z), f2dbl(H));
-  out = g2_equal_x<Ops>(p, out, same_x, same_y);
-  out = j2sel(jac2_is_inf(p), q, out);
-  return j2sel(jac2_is_inf(q), p, out);
-}
-
-// madd-2007-bl (Z2 = 1) with the exceptional lanes: 8M + 3S over Fp2 (I as
-// (2H)^2 and Z3 as 2H Z1). A lane with p at infinity gives (x2, y2, ONE).
-// (x2, y2) must not be infinity (callers mask those lanes).
-template <class Ops>
-__device__ __forceinline__ jac2_t g2_madd(const jac2_t& p, const fp2_t& x2, const fp2_t& y2) {
-  const fp2_t Z1Z1 = f2sqr<Ops>(p.z);
-  const fp2_t H = f2sub(f2mul<Ops>(x2, Z1Z1), p.x);
-  const fp2_t dS = f2sub(f2mul<Ops>(y2, f2mul<Ops>(p.z, Z1Z1)), p.y);
-  const bool same_x = f2zero(H);
-  const bool same_y = f2zero(dS);
-  const fp2_t I = f2sqr<Ops>(f2dbl(H));
-  const fp2_t J = f2mul<Ops>(H, I);
-  const fp2_t V = f2mul<Ops>(p.x, I);
-  const fp2_t r = f2dbl(dS);
-  jac2_t out;
-  out.x = f2sub(f2sub(f2sqr<Ops>(r), J), f2dbl(V));
-  out.y = f2sub(f2mul<Ops>(r, f2sub(V, out.x)), f2dbl(f2mul<Ops>(p.y, J)));
-  out.z = f2mul<Ops>(f2dbl(H), p.z);
-  out = g2_equal_x<Ops>(p, out, same_x, same_y);
-  const jac2_t q{x2, y2, fp2_t{fp_one(), zero<12>()}};
-  return j2sel(jac2_is_inf(p), q, out);
-}
+  // c0 = (a0 + a1)(a0 - a1), c1 = 2 a0 a1.
+  static __device__ __forceinline__ fp2_t sqr(const fp2_t& a) {
+    return fp2_t{Base::mul(fadd(a.c0, a.c1), fsub(a.c0, a.c1)), Base::mul(fdbl(a.c0), a.c1)};
+  }
+  static __device__ __forceinline__ fp2_t add(const fp2_t& a, const fp2_t& b) {
+    return fp2_t{fadd(a.c0, b.c0), fadd(a.c1, b.c1)};
+  }
+  static __device__ __forceinline__ fp2_t sub(const fp2_t& a, const fp2_t& b) {
+    return fp2_t{fsub(a.c0, b.c0), fsub(a.c1, b.c1)};
+  }
+  static __device__ __forceinline__ fp2_t dbl(const fp2_t& a) {
+    return fp2_t{fdbl(a.c0), fdbl(a.c1)};
+  }
+  static __device__ __forceinline__ bool is_zero(const fp2_t& a) {
+    return fzero(a.c0) && fzero(a.c1);
+  }
+  static __device__ __forceinline__ fp2_t sel(bool c, const fp2_t& a, const fp2_t& b) {
+    return fp2_t{fsel(c, a.c0, b.c0), fsel(c, a.c1, b.c1)};
+  }
+  static __device__ __forceinline__ fp2_t zero() {
+    return fp2_t{kzg::zero<12>(), kzg::zero<12>()};
+  }
+  static __device__ __forceinline__ fp2_t one() { return fp2_t{fp_one(), kzg::zero<12>()}; }
+};
 
 // Layout of an Fp2 coordinate: (12, 2, n) int32, word j of component c of
 // lane i at base[(2 j + c) n + i].

@@ -12,12 +12,13 @@
 // (ops/codec.py).
 //
 // Bound on an H100: operations. A madd moves 8 x 96 bytes and needs 7 Fp2
-// multiplies and 4 squares (29 Fp products, ~17,400 IMADs), an add 9 x 96
-// bytes and 11 + 5 (43, ~25,800), a double 6 x 96 bytes and 2 + 5 (16,
-// ~9,600): 30 to 60 IMADs a byte, above the card's ~5.
+// multiplies and 4 squares (15,216 IMADs, an Fp2 multiply counted with lazy
+// reduction: three word products, two reductions), an add 9 x 96 bytes and
+// 11 + 5 (22,368), a double 6 x 96 bytes and 2 + 5 (8,976): 15 to 26 IMADs
+// a byte, above the card's ~5.
 //
-// Design (g2.cuh): the formulas call the out-of-line Fp multiply
-// (FieldCalled), three products an Fp2 multiply; each thread keeps its
+// Design: g1.cuh's formulas over g2.cuh's Fp2Ops on the out-of-line Fp
+// multiply (FieldCalled), three products an Fp2 multiply; each thread keeps its
 // operands (72 words a Jacobian point) in shared memory and only the
 // formula's temporaries in registers; the P == Q doubling of add and madd
 // runs only in a warp with such a lane. kG2Threads lanes a block keep the
@@ -30,11 +31,11 @@ namespace kzg {
 
 constexpr int kG2Threads = 64;
 
-using G2Ops = FieldCalled;
+using G2Ops = Fp2Ops<FieldCalled>;
 
 __device__ __forceinline__ jac2_t load_jac2(const u32* x, const u32* y, const u32* z, int n,
                                             long long i) {
-  if (i >= n) return jac2_inf();
+  if (i >= n) return pt_inf<G2Ops, jac2_t>();
   return jac2_t{load2(x, n, i), load2(y, n, i), load2(z, n, i)};
 }
 
@@ -53,7 +54,7 @@ __global__ void __launch_bounds__(kG2Threads) g2_double_kernel(const u32* x, con
   const int t = threadIdx.x;
   const long long i = (long long)blockIdx.x * kG2Threads + t;
   sp[t] = load_jac2(x, y, z, n, i);
-  store_jac2(ox, oy, oz, n, i, g2_double<G2Ops>(sp[t]));
+  store_jac2(ox, oy, oz, n, i, jac_double<G2Ops>(sp[t]));
 }
 
 __global__ void __launch_bounds__(kG2Threads) g2_add_kernel(const u32* x1, const u32* y1,
@@ -65,7 +66,7 @@ __global__ void __launch_bounds__(kG2Threads) g2_add_kernel(const u32* x1, const
   const long long i = (long long)blockIdx.x * kG2Threads + t;
   sp[t] = load_jac2(x1, y1, z1, n, i);
   sq[t] = load_jac2(x2, y2, z2, n, i);
-  store_jac2(ox, oy, oz, n, i, g2_add<G2Ops>(sp[t], sq[t]));
+  store_jac2(ox, oy, oz, n, i, jac_add<G2Ops, true>(sp[t], sq[t]));
 }
 
 __global__ void __launch_bounds__(kG2Threads) g2_madd_kernel(const u32* x1, const u32* y1,
@@ -77,9 +78,9 @@ __global__ void __launch_bounds__(kG2Threads) g2_madd_kernel(const u32* x1, cons
   const int t = threadIdx.x;
   const long long i = (long long)blockIdx.x * kG2Threads + t;
   sp[t] = load_jac2(x1, y1, z1, n, i);
-  sx[t] = i < n ? load2(x2, n, i) : f2zero_elem();
-  sy[t] = i < n ? load2(y2, n, i) : f2zero_elem();
-  store_jac2(ox, oy, oz, n, i, g2_madd<G2Ops>(sp[t], sx[t], sy[t]));
+  sx[t] = i < n ? load2(x2, n, i) : G2Ops::zero();
+  sy[t] = i < n ? load2(y2, n, i) : G2Ops::zero();
+  store_jac2(ox, oy, oz, n, i, jac_madd<G2Ops, true>(sp[t], sx[t], sy[t]));
 }
 
 }  // namespace kzg

@@ -27,11 +27,11 @@
 //
 //   - The point operations call the out-of-line multiply and square
 //     (g1.cuh FieldCalled): one copy of each in the instruction cache.
-//   - The madd is the 11-multiply g1_madd_fast. A lane whose partial sum
+//   - The madd is the 11-multiply jac_madd_fast. A lane whose partial sum
 //     equals its entry (acc == Q, acc finite) needs the doubling instead;
-//     its warp computes g1_double(acc) only when one of its lanes needs it
+//     its warp computes jac_double(acc) only when one of its lanes needs it
 //     (__any_sync, a warp-uniform branch), and that lane keeps the doubling.
-//     So each step's output is g1_madd's word for word.
+//     So each step's output is jac_madd's word for word.
 //   - The accumulator lives in shared memory, not in registers across
 //     those calls (36,864 B a block).
 //   - Each lane gathers its entry T[w][digit] from the (12, 32, 256) tables
@@ -79,11 +79,11 @@ __device__ __forceinline__ void fold_madd(jac_t& acc, const fp_t& qx, const fp_t
     return;
   }
   bool need;
-  jac_t sum = g1_madd_fast<FoldOps>(acc, qx, qy, need);
+  jac_t sum = jac_madd_fast<FoldOps>(acc, qx, qy, need);
   asm volatile("" ::: "memory");
   need = need && !skip;
   if (__any_sync(0xffffffffu, need)) {
-    const jac_t d = g1_double<FoldOps>(acc);
+    const jac_t d = jac_double<FoldOps>(acc);
     if (need) sum = d;
     asm volatile("" ::: "memory");
   }
@@ -110,7 +110,7 @@ __global__ void __launch_bounds__(kFoldThreads)
 
 __device__ __forceinline__ jac_t fold_step(const jac_t& acc, const fp_t& qx, const fp_t& qy) {
   if (fzero(qx) && fzero(qy)) return acc;
-  return g1_madd(acc, qx, qy);
+  return jac_madd(acc, qx, qy);
 }
 
 __global__ void __launch_bounds__(128) fold_entries_kernel(const u32* xs, const u32* ys, u32* ox,

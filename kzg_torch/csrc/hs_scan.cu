@@ -61,7 +61,7 @@ __device__ __forceinline__ jac_t hs_shared(jac_t* buf, int n, int t) {
     __syncthreads();
     const jac_t* src = buf + cur * n;
     jac_t* dst = buf + (cur ^ 1) * n;
-    if (t < n) dst[t] = t >= shift ? g1_add<FieldCalled>(src[t], src[t - shift]) : src[t];
+    if (t < n) dst[t] = t >= shift ? jac_add<FieldCalled>(src[t], src[t - shift]) : src[t];
     cur ^= 1;
   }
   return buf[cur * n + t];
@@ -108,7 +108,7 @@ __global__ void __launch_bounds__(kHsBlock) hs_runs_kernel(const u32* x, const u
       const long long p = hs_lane(r, W, g, reverse);
       op[1] = load_jac(x, y, z, stride, p);
       asm volatile("" ::: "memory");
-      op[0] = g1_add<FieldCalled>(op[0], op[1]);
+      op[0] = jac_add<FieldCalled>(op[0], op[1]);
       asm volatile("" ::: "memory");
       store_jac(ox, oy, oz, stride, p, op[0]);
     }
@@ -146,7 +146,7 @@ __global__ void __launch_bounds__(128) hs_offsets_kernel(const u32* rx, const u3
   } else if (t == 0) {
     off = load_jac(cx, cy, cz, cstride, ci);
   } else {
-    off = g1_add<FieldCalled>(load_jac(cx, cy, cz, cstride, ci),
+    off = jac_add<FieldCalled>(load_jac(cx, cy, cz, cstride, ci),
                               load_jac(rx, ry, rz, rstride, ri - 1));
   }
   store_jac(fx, fy, fz, rstride, ri, off);
@@ -171,7 +171,7 @@ __global__ void __launch_bounds__(128) hs_apply_kernel(const u32* lx, const u32*
     return;
   }
   const jac_t off = load_jac(fx, fy, fz, (long long)R * nruns, (long long)r * nruns + g / run);
-  store_jac(ox, oy, oz, stride, p, g1_add<FieldCalled>(off, loc));
+  store_jac(ox, oy, oz, stride, p, jac_add<FieldCalled>(off, loc));
 }
 
 // Dynamic shared memory of a Hillis-Steele over n points, two buffers (and,

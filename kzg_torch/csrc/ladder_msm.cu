@@ -15,7 +15,7 @@
 //   the ladder in mul_scalar_affine's order: acc = 2 acc, then acc + P_i
 //   where bit b of k_i is set, b from the top down. Every lane computes
 //   every step's madd and keeps it by a select: no branch on the bit. The
-//   madd is the 11-multiply one (g1_madd_fast); a lane with acc == P_i needs
+//   madd is the 11-multiply one (jac_madd_fast); a lane with acc == P_i needs
 //   the doubling instead, and its warp computes that only when one of its
 //   lanes needs it (a warp-uniform branch). So each step's output is the
 //   exact madd's, acc = infinity and acc = -P_i included. The steps above
@@ -91,13 +91,13 @@ __global__ void __launch_bounds__(kLadderThreads) ladder_msm_kernel(
   const int first = top;
 #pragma unroll 1
   for (int b = first; b >= 0; b--) {
-    s.acc[t] = g1_double<LadderOps>(s.acc[t]);
+    s.acc[t] = jac_double<LadderOps>(s.acc[t]);
     asm volatile("" ::: "memory");
     bool need;
-    s.sum[t] = g1_madd_fast<LadderOps>(s.acc[t], s.px[t], s.py[t], need);
+    s.sum[t] = jac_madd_fast<LadderOps>(s.acc[t], s.px[t], s.py[t], need);
     asm volatile("" ::: "memory");
     if (__any_sync(0xffffffffu, need)) {
-      const jac_t d = g1_double<LadderOps>(s.acc[t]);
+      const jac_t d = jac_double<LadderOps>(s.acc[t]);
       if (need) s.sum[t] = d;
       asm volatile("" ::: "memory");
     }
@@ -110,7 +110,7 @@ __global__ void __launch_bounds__(kLadderThreads) ladder_msm_kernel(
   for (int h = 1; h < kLadderThreads; h <<= 1) {  // kLadderLevels levels
     __syncthreads();
     const int j = 2 * h * t;
-    if (j < kLadderThreads) s.acc[j] = g1_add<LadderOps>(s.acc[j], s.acc[j + h]);
+    if (j < kLadderThreads) s.acc[j] = jac_add<LadderOps>(s.acc[j], s.acc[j + h]);
   }
   __syncthreads();
   const int blocks = gridDim.x;
@@ -136,7 +136,7 @@ __global__ void __launch_bounds__(kLadderThreads) ladder_msm_kernel(
       s.acc[t] = load_jac_cg(scratch + j);
       s.sum[t] = load_jac_cg(scratch + j + h);
       asm volatile("" ::: "memory");
-      scratch[j] = g1_add<LadderOps>(s.acc[t], s.sum[t]);
+      scratch[j] = jac_add<LadderOps>(s.acc[t], s.sum[t]);
     }
     __threadfence();
     __syncthreads();

@@ -55,10 +55,10 @@ __global__ void __launch_bounds__(128) scan_madd_kernel(const u32* __restrict__ 
     const fp_t qy = load<12>(yj, limb_stride, c);
     if (FAST) {
       bool nd;
-      run = g1_madd_fast(run, qx, qy, nd);
+      run = jac_madd_fast(run, qx, qy, nd);
       any_double |= nd;
     } else {
-      run = g1_madd(run, qx, qy);
+      run = jac_madd(run, qx, qy);
     }
     const long long base = (long long)j * 12 * C;
     store_jac(ox + base, oy + base, oz + base, C, c, run);
@@ -131,7 +131,7 @@ __global__ void __launch_bounds__(kBucketThreads, kBucketMinBlocks)
       qy.w[4 * v] = b.x; qy.w[4 * v + 1] = b.y; qy.w[4 * v + 2] = b.z; qy.w[4 * v + 3] = b.w;
     }
     if (key < 0) qy = fsub(zero<12>(), qy);
-    run = g1_madd(run, qx, qy);
+    run = jac_madd(run, qx, qy);
     if (d != d_next && (unsigned)d < (unsigned)nb) store_jac(ux, uy, uz, nb, d, run);
     key = key_next;
     key_next = key_after;

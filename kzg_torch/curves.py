@@ -1,11 +1,12 @@
 """The group types: the reference's ``G1Point`` and ``G2Point``
 (src/curves.rs), as in ``kzg_tpu/curves.py``.
 
-A point wraps a device Jacobian triple of (12,) (G1) or (12, 2) (G2)
-Montgomery words, or host affine ints, and converts between them on demand:
-an MSM result stays on the device until its affine form, compression or
-JSON is asked for. Compression follows the ZCash convention (48 bytes for
-G1, 96 for G2; src/curves.rs:99-110, :259-343) at the host boundary.
+A G1 point wraps a device Jacobian triple of (12,) Montgomery words, or
+host affine ints, and converts between them on demand: an MSM result stays
+on the device until its affine form, compression or JSON is asked for. A G2
+point holds host affine ints. Compression follows the ZCash convention (48
+bytes for G1, 96 for G2; src/curves.rs:99-110, :259-343) at the host
+boundary.
 """
 
 from __future__ import annotations
@@ -71,24 +72,22 @@ class G1Point:
 
 
 class G2Point:
-    """A G2 point (``kzg_tpu/curves.py:129-167``): affine, compression and
-    JSON. Its group operations wait for the port's verify slice."""
+    """A G2 point (``kzg_tpu/curves.py:129-167``): host affine ints, their
+    compression and JSON. Its group operations wait for the port's verify
+    slice."""
 
-    __slots__ = ("_jac", "_affine")
+    __slots__ = ("_affine",)
 
-    def __init__(self, jac=None, affine=_UNSET):
-        self._jac = jac  # (X, Y, Z), each (12, 2) int32 words, or None
-        self._affine = affine  # host ((x0, x1), (y0, y1)), None for infinity, or _UNSET
+    def __init__(self, affine):
+        self._affine = affine  # host ((x0, x1), (y0, y1)), None for infinity
 
     @classmethod
     def from_affine(cls, p) -> "G2Point":
         """Host affine Fp2 ints ((x0, x1), (y0, y1)), or None for infinity."""
-        return cls(None, p)
+        return cls(p)
 
     def affine(self):
         """Host affine Fp2 ints, or None for infinity."""
-        if self._affine is _UNSET:
-            self._affine = cv.g2_from_device(tuple(c.reshape(c.shape[0], 2, 1) for c in self._jac))[0]
         return self._affine
 
     def is_infinity(self) -> bool:

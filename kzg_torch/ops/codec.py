@@ -151,8 +151,7 @@ def _check(jac, ok, group, subgroup_check: bool):
     if not bool(ok.all()):
         raise SerializationError("Point not on curve")
     if subgroup_check:
-        is_inf = cv.is_inf if group == cv.G1 else cv.g2_is_inf
-        if not bool(is_inf(cv.mul_scalar(jac, hm.R, group=group)).all()):
+        if not bool(group.is_inf(cv.mul_scalar(jac, hm.R, group=group)).all()):
             raise SerializationError("Point not in the prime-order subgroup")
     return jac
 

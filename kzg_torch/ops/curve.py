@@ -17,6 +17,9 @@ operations (whose products are K1 on a CUDA tensor).
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 
 from . import _build
@@ -24,8 +27,6 @@ from . import fp2
 from . import limbs as lb
 from .field import FP, FR
 from ..utils import hostmath as hm
-
-G1, G2 = "G1", "G2"  # the groups, as the functions below that serve both name them
 
 # ---------------------------------------------------------------------------
 # Plain versions on 16-bit limbs (tuples of (24, N) int64 tensors)
@@ -367,59 +368,6 @@ def scalar_bit(k: torch.Tensor, i: int) -> torch.Tensor:
     return ((k[i // 32] >> (i % 32)) & 1) == 1
 
 
-def _group_ops(group):
-    """A group's (double, add, madd, is_inf), looked up when called."""
-    if group == G1:
-        return g1_double, g1_add, g1_madd, is_inf
-    if group == G2:
-        return g2_double, g2_add, g2_madd, g2_is_inf
-    raise ValueError(f"no group {group!r}")
-
-
-def mul_scalar(p, k, nbits: int = 256, group=G1):
-    """[k] p for Jacobian base points: MSB-first double-and-add
-    (curve.py:205-226) on the group's kernels. k is either (8, *batch)
-    standard-form Fr words, a scalar a lane (every step adds, a select
-    keeps it where the bit is set), or a python int, one scalar for every
-    lane: then its steps above the top set bit are skipped (there the
-    JAX package's acc is the zero words of infinity, whose doubling gives
-    the same words, and its first add gives p, or zeros where p is
-    infinite) and only its set bits add. The same words either way."""
-    double, add, _, inf = _group_ops(group)
-    if isinstance(k, int):
-        k &= (1 << nbits) - 1
-        if k == 0:
-            return inf_like(p)
-        acc = select(inf(p), inf_like(p), p)
-        for i in range(k.bit_length() - 2, -1, -1):
-            acc = double(acc)
-            if (k >> i) & 1:
-                acc = add(acc, p)
-        return acc
-    acc = inf_like(p)
-    for i in range(nbits - 1, -1, -1):
-        acc = double(acc)
-        acc = select(scalar_bit(k, i), add(acc, p), acc)
-    return acc
-
-
-def mul_scalar_affine(p_affine, k: torch.Tensor, nbits: int = 256, double=None, madd=None,
-                      group=G1):
-    """[k] p for affine base points: MSB-first double-and-add with mixed adds
-    (curve.py:228-245), on the group's kernels (K2 for G1, K9 for G2) unless
-    ``double`` and ``madd`` are given. p_affine (x, y) (12, n) or (12, 2, n)
-    words; k (8, n) standard-form Fr words. Lanes must not be infinite
-    (callers mask them)."""
-    g_double, _, g_madd, _ = _group_ops(group)
-    double, madd = double or g_double, madd or g_madd
-    x, y = p_affine
-    acc = inf_like((x, x, x))
-    for i in range(nbits - 1, -1, -1):
-        acc = double(acc)
-        acc = select(scalar_bit(k, i), madd(acc, (x, y)), acc)
-    return acc
-
-
 # ---------------------------------------------------------------------------
 # G2 over Fp2. Plain versions: the JAX package's formulas on ``fp2``.
 # ---------------------------------------------------------------------------
@@ -629,6 +577,89 @@ def g2_gen_affine(device, n: int = 1):
     """G2's generator as affine Montgomery words, broadcast to (12, 2, n)."""
     gx, gy = (fp2.tensor([c], device) for c in hm.G2_GEN)
     return gx.expand(FP.L, 2, n).contiguous(), gy.expand(FP.L, 2, n).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The two groups as records, for the functions that serve both
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Group:
+    """What a function serving both groups needs of one of them."""
+
+    name: str
+    coord: tuple  # the leading axes of a coordinate's words
+    double: Callable  # the kernels: K2 for G1, K9 for G2
+    add: Callable
+    madd: Callable
+    is_inf: Callable
+    to_affine: Callable
+    words: Callable  # (host ints, device) -> Montgomery words
+    to_ints: Callable  # Montgomery words -> flat list of host ints
+    one: Callable  # words -> the Montgomery one in their shape
+    gen_affine: Callable  # (device, n) -> the generator's affine words
+    gen: tuple  # the generator, host affine ints
+    host_add: Callable  # hostmath's affine add
+
+    def host_affine(self, xy, inf) -> list:
+        """Affine words (x, y) and their infinity mask -> host points, None
+        at infinity."""
+        pts = zip(self.to_ints(xy[0]), self.to_ints(xy[1]))
+        return [None if i else p for p, i in zip(pts, inf.reshape(-1).tolist())]
+
+
+# The kernels are looked up when called, so that a module function swapped
+# for a wrapper (chip_smoke.py's call log) is the one that runs.
+G1 = Group("G1", (FP.L,), lambda p: g1_double(p), lambda p, q: g1_add(p, q),
+           lambda p, q: g1_madd(p, q), is_inf, to_affine, FP.tensor, FP.from_words_many,
+           FP.one_like, g1_gen_affine, hm.G1_GEN, hm.g1_add)
+G2 = Group("G2", (FP.L, 2), lambda p: g2_double(p), lambda p, q: g2_add(p, q),
+           lambda p, q: g2_madd(p, q), g2_is_inf, g2_to_affine, fp2.tensor, fp2.to_ints,
+           fp2.one, g2_gen_affine, hm.G2_GEN, hm.g2_add)
+
+
+def mul_scalar(p, k, nbits: int = 256, group=G1):
+    """[k] p for Jacobian base points: MSB-first double-and-add
+    (curve.py:205-226) on the group's kernels. k is either (8, *batch)
+    standard-form Fr words, a scalar a lane (every step adds, a select
+    keeps it where the bit is set), or a python int, one scalar for every
+    lane: then its steps above the top set bit are skipped (there the
+    JAX package's acc is the zero words of infinity, whose doubling gives
+    the same words, and its first add gives p, or zeros where p is
+    infinite) and only its set bits add. The same words either way."""
+    double, add, inf = group.double, group.add, group.is_inf
+    if isinstance(k, int):
+        k &= (1 << nbits) - 1
+        if k == 0:
+            return inf_like(p)
+        acc = select(inf(p), inf_like(p), p)
+        for i in range(k.bit_length() - 2, -1, -1):
+            acc = double(acc)
+            if (k >> i) & 1:
+                acc = add(acc, p)
+        return acc
+    acc = inf_like(p)
+    for i in range(nbits - 1, -1, -1):
+        acc = double(acc)
+        acc = select(scalar_bit(k, i), add(acc, p), acc)
+    return acc
+
+
+def mul_scalar_affine(p_affine, k: torch.Tensor, nbits: int = 256, double=None, madd=None,
+                      group=G1):
+    """[k] p for affine base points: MSB-first double-and-add with mixed adds
+    (curve.py:228-245), on the group's kernels (K2 for G1, K9 for G2) unless
+    ``double`` and ``madd`` are given. p_affine (x, y) (12, n) or (12, 2, n)
+    words; k (8, n) standard-form Fr words. Lanes must not be infinite
+    (callers mask them)."""
+    double, madd = double or group.double, madd or group.madd
+    x, y = p_affine
+    acc = inf_like((x, x, x))
+    for i in range(nbits - 1, -1, -1):
+        acc = double(acc)
+        acc = select(scalar_bit(k, i), madd(acc, (x, y)), acc)
+    return acc
 
 
 def fr_std_words(values, device) -> torch.Tensor:

@@ -32,7 +32,6 @@ from . import curve as cv
 from . import fp2
 from . import poly as polyops
 from .field import FP, FR
-from ..utils import hostmath as hm
 from ..utils.device import resolve_device
 
 GEN_WINDOW_BITS = 8
@@ -46,21 +45,15 @@ GENMUL_TABLE_THRESHOLD = 512
 @functools.cache
 def _gen_pow2(group=cv.G1):
     """The host-exact affine points 2^j G for j < 256."""
-    gen, add = (hm.G1_GEN, hm.g1_add) if group == cv.G1 else (hm.G2_GEN, hm.g2_add)
-    out = [gen]
+    out = [group.gen]
     for _ in range(GEN_WINDOW_BITS * GEN_WINDOWS - 1):
-        out.append(add(out[-1], out[-1]))
+        out.append(group.host_add(out[-1], out[-1]))
     return tuple(out)
 
 
 def _level_bases(k: int, group=cv.G1) -> list:
     """Host-exact affine points [2^(8w + k) G for w < 32]."""
     return [_gen_pow2(group)[GEN_WINDOW_BITS * w + k] for w in range(GEN_WINDOWS)]
-
-
-def _coord(group) -> tuple:
-    """The leading axes of a group's coordinate: (12,) for G1, (12, 2) for G2."""
-    return (FP.L,) if group == cv.G1 else (FP.L, 2)
 
 
 def _build_tables(device, group=cv.G1, madd=None):
@@ -72,14 +65,12 @@ def _build_tables(device, group=cv.G1, madd=None):
     so far, as ``genmul.py:64-87``. The madd's exceptional lanes are benign:
     T[w][0] = infinity takes the (x2, y2, ONE) branch, and T[w][j] == 2^k
     base_w would need j == 2^k."""
-    g2 = group == cv.G2
-    coord = _coord(group)
-    to_words = fp2.tensor if g2 else FP.tensor
-    madd = madd or (cv.g2_madd if g2 else cv.g1_madd)
-    bases = [to_words([c for p in _level_bases(k, group) for c in p], device)
+    coord = group.coord
+    madd = madd or group.madd
+    bases = [group.words([c for p in _level_bases(k, group) for c in p], device)
              .view(*coord, GEN_WINDOWS, 2) for k in range(GEN_WINDOW_BITS)]
     zero = torch.zeros(*coord, GEN_WINDOWS, 1, dtype=torch.int32, device=device)
-    one = (fp2.one if g2 else FP.one_like)(zero)
+    one = group.one(zero)
     acc = (torch.cat([zero, bases[0][..., :1]], -1), torch.cat([zero, bases[0][..., 1:]], -1),
            torch.cat([zero, one], -1))  # entries [0, 1] = [infinity, base]
     for k in range(1, GEN_WINDOW_BITS):
@@ -87,7 +78,7 @@ def _build_tables(device, group=cv.G1, madd=None):
         q = tuple(bases[k][..., c : c + 1].expand(*coord, GEN_WINDOWS, width) for c in (0, 1))
         new = madd(acc, q)
         acc = tuple(torch.cat([a, b], -1) for a, b in zip(acc, new))
-    (tx, ty), _ = (cv.g2_to_affine if g2 else cv.to_affine)(acc)
+    (tx, ty), _ = group.to_affine(acc)
     return tx.contiguous(), ty.contiguous()
 
 
@@ -232,6 +223,11 @@ def fold_g2(tx, ty, digits, madd=None):
     return acc
 
 
+# K5 for G1, the JAX package's fold on K9 for G2; looked up when called, as
+# curve.Group's kernels are
+_FOLDS = {"G1": lambda *a: gen_fold(*a), "G2": lambda *a: fold_g2(*a)}
+
+
 def mul_gen(k: torch.Tensor, tables=None, group=cv.G1):
     """[k] G for standard-form Fr words k (8, *batch): a Jacobian triple of
     (12, *batch) (G1) or (12, 2, *batch) (G2) words, through the group's
@@ -240,8 +236,8 @@ def mul_gen(k: torch.Tensor, tables=None, group=cv.G1):
     tx, ty = tables if tables is not None else gen_tables(k.device, group)
     batch = tuple(k.shape[1:])
     digits = _digits8(k).reshape(GEN_WINDOWS, math.prod(batch))
-    out = gen_fold(tx, ty, digits) if group == cv.G1 else fold_g2(tx, ty, digits)
-    return tuple(c.reshape(_coord(group) + batch) for c in out)
+    out = _FOLDS[group.name](tx, ty, digits)
+    return tuple(c.reshape(group.coord + batch) for c in out)
 
 
 def mul_gen_auto(k: torch.Tensor, group=cv.G1):
@@ -253,9 +249,8 @@ def mul_gen_auto(k: torch.Tensor, group=cv.G1):
     nb = math.prod(batch)
     if tables_built(k.device, group) or nb >= GENMUL_TABLE_THRESHOLD:
         return mul_gen(k, group=group)
-    gen = cv.g1_gen_affine if group == cv.G1 else cv.g2_gen_affine
-    out = cv.mul_scalar_affine(gen(k.device, nb), k.reshape(FR.L, nb), group=group)
-    return tuple(c.reshape(_coord(group) + batch) for c in out)
+    out = cv.mul_scalar_affine(group.gen_affine(k.device, nb), k.reshape(FR.L, nb), group=group)
+    return tuple(c.reshape(group.coord + batch) for c in out)
 
 
 def mul_g1_gen(k: torch.Tensor):

@@ -23,11 +23,10 @@ import torch
 from .curves import G1Point, G2Point
 from .ops import codec
 from .ops import curve as cv
-from .ops import fp2
 from .ops import genmul
 from .ops import msm as msmops
 from .ops import poly as polyops
-from .ops.field import FP, FR
+from .ops.field import FR
 from .scalar import Scalar
 from .utils import hostmath as hm
 from .utils.device import resolve_device
@@ -59,13 +58,10 @@ def _artifacts(ks: torch.Tensor) -> list[SetupArtifact]:
     """{k G1, k G2} for each lane of the (8, n) standard-form words ks: the
     generator multiplications, one affine conversion a group on the device,
     then host ints."""
-    (x1, y1), inf1 = cv.to_affine(genmul.mul_g1_gen(ks))
-    (x2, y2), inf2 = cv.g2_to_affine(genmul.mul_g2_gen(ks))
-    g1 = zip(FP.from_words_many(x1), FP.from_words_many(y1), inf1.tolist())
-    g2 = zip(fp2.to_ints(x2), fp2.to_ints(y2), inf2.tolist())
-    return [SetupArtifact(G1Point.from_affine(None if i1 else (a, b)),
-                          G2Point.from_affine(None if i2 else (c, d)))
-            for (a, b, i1), (c, d, i2) in zip(g1, g2)]
+    g1 = cv.G1.host_affine(*cv.to_affine(genmul.mul_g1_gen(ks)))
+    g2 = cv.G2.host_affine(*cv.g2_to_affine(genmul.mul_g2_gen(ks)))
+    return [SetupArtifact(G1Point.from_affine(p1), G2Point.from_affine(p2))
+            for p1, p2 in zip(g1, g2)]
 
 
 def generate_setup(secret: Scalar, count: int, chunk: int = 8192,

@@ -37,11 +37,11 @@ EXTRA_WARP = [
      "  else if (t == kLeaves) bucket_v(in, kTop, top, top + 1);\n"),
     ("  pts[t].y = fsub(zero<12>(), pts[t].y);\n"
      "  asm volatile(\"\" ::: \"memory\");\n"
-     "  pts[t] = g1_add<BrOps>(top[0], pts[t]);\n",
+     "  pts[t] = jac_add<BrOps>(top[0], pts[t]);\n",
      "  if (t < kLeaves) {\n"
      "    pts[t].y = fsub(zero<12>(), pts[t].y);\n"
      "    asm volatile(\"\" ::: \"memory\");\n"
-     "    pts[t] = g1_add<BrOps>(top[0], pts[t]);\n"
+     "    pts[t] = jac_add<BrOps>(top[0], pts[t]);\n"
      "  }\n"),
     ("<<<kBrBlocks, kLeaves, smem,", "<<<kBrBlocks, kLeaves + 32, smem,"),
 ]

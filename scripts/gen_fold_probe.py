@@ -35,16 +35,16 @@ from kzg_torch.utils import fold_cases  # noqa: E402
 
 EXACT_MADD = (
     '''  bool need;
-  jac_t sum = g1_madd_fast<FoldOps>(acc, qx, qy, need);
+  jac_t sum = jac_madd_fast<FoldOps>(acc, qx, qy, need);
   asm volatile("" ::: "memory");
   need = need && !skip;
   if (__any_sync(0xffffffffu, need)) {
-    const jac_t d = g1_double<FoldOps>(acc);
+    const jac_t d = jac_double<FoldOps>(acc);
     if (need) sum = d;
     asm volatile("" ::: "memory");
   }
 ''',
-    '''  const jac_t sum = g1_madd<FoldOps>(acc, qx, qy);
+    '''  const jac_t sum = jac_madd<FoldOps>(acc, qx, qy);
   asm volatile("" ::: "memory");
 ''')
 INLINE = ("using FoldOps = FieldCalled;", "using FoldOps = FieldInline;")
