@@ -73,6 +73,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      rejected with kzg_tpu's messages, and DeviceSRS.load's words those of
      DeviceSRS.from_artifacts; (d) the 2^20 ceremony's points compressed,
      then g1_decompress_batch with the subgroup check: the ceremony's words.
+   - verify, after the setup paths and with the generator tables set aside
+     (a verifier's process has none; phase_verify): Evaluation.verify_proof
+     of the main path's C and the proof path's pi, x and y against the 2^20
+     SRS (s G2 from hostmath, set-up): True first and in 3 warm runs, False
+     for a wrong y, pi + G1 and C + G1; K10 and K11 once, 256 launches each
+     of K2's and K9's double and madd and one add of each group
+     (VERIFY_LAUNCHES). Then the 10-coefficient proof against a list of 10
+     SetupArtifact, verify_proofs_batch at V = 1, 16 and 64 on openings of
+     that polynomial with item 7 given a wrong y (V = 64 a driven path),
+     and bilinear_map against hostmath.pairing on two seeded pairs, its
+     bilinearity and its infinity lanes.
    Each commit must equal the host oracle (sum a_i s^i mod r) G1, and each
    kernel of a path must have launched in its run.
 5. replay: every logged call again at its shapes on seeded inputs, kernel
@@ -113,13 +124,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    127, 128, 16383, 65536) are tests/test_torch_gpu.py's. Then K9 on the
    case table of kzg_torch/utils/g2_cases.py at n = 1, 127, 128 and 129,
    against its plain version (bit-identical) and the case lanes against
-   the host oracle.
+   the host oracle. Then K10 and K11 at n = 1, 2, 33 and 128 lanes (the
+   generator pair, an infinity lane of zero words, seeded pairs; K11 also
+   on a lane of random Fp12 words) against their plain versions, each run
+   once over all sizes' lanes side by side, and the generator pair's
+   pairing against hostmath.
    All after every timing: run before the paths, such checks' allocations
    moved the buffers the later paths allocate, and the window fold (K5)
    read slower for it.
 8. a line {"kernels": [...]} (the bucket reduction's and K2b's entries also
    give their critical paths, BUCKET_REDUCE_CHAIN and ladder_chain, and the
-   ms per point operation on them), then the last line {"ok": true,
+   ms per point operation on them; K10's and K11's their chains of Fp12
+   operations, PAIRING_CHAINS, and their numbers at the batch of 64), then
+   the last line {"ok": true,
    "device": ...}.
 
 Bounds: the larger of bytes moved / 3.35 TB/s (H100 SXM HBM3) and 32-bit
@@ -169,7 +186,12 @@ add for each non-zero digit but a bucket's first, the running sum over the
 buckets from the highest digit down, and c doublings and an add a window
 below the top one. At the batched path's 8192 random scalars the buckets
 win (about 0.095 ms, at c = 10); at a lane or two, the ladder. It reads 128
-bytes a lane (a mask byte more) and writes one point.
+bytes a lane (a mask byte more) and writes one point. The pairing's
+kernels are counted in the cheapest published forms of its Fp2 operations
+(MILLER_OPS, FEXP_OPS: a sparse line product, cyclotomic squares in the
+hard part): about 3.4 M IMADs a lane for the Miller loop and 5.5 M for the
+final exponentiation with its Fermat ladder; a lane reads 288 bytes and
+writes 576 (K10), or reads and writes 576 (K11).
 """
 
 from __future__ import annotations
@@ -206,8 +228,26 @@ FP2_SQR_OPS = 2 * FP_MUL_OPS  # the complex square: two Fp multiplies
 G2_ADD_OPS = 11 * FP2_MUL_OPS + 5 * FP2_SQR_OPS
 G2_MADD_OPS = 7 * FP2_MUL_OPS + 4 * FP2_SQR_OPS
 G2_DBL_OPS = 2 * FP2_MUL_OPS + 5 * FP2_SQR_OPS
+# the pairing's Fp2 operations (M a multiply, S a square, m an Fp product) in
+# their cheapest published forms: a Miller doubling step with its line 3M +
+# 6S + 4m, a mixed addition step 11M + 2S + 4m, an Fp12 square 12M (f is
+# not yet cyclotomic), a sparse line product 13M; in the final
+# exponentiation's hard part a cyclotomic square 9S (Granger-Scott), an
+# Fp12 multiply 18M, a Frobenius 5M (two of them); its easy part an Fp12
+# inversion (33M + 3S, 4 Fp products and one Fermat ladder), two multiplies
+# and a Frobenius
+MILLER_STEPS, MILLER_ADDS = 63, 5  # the bits of |x| below the top one; those set
+E_HARD_SQRS, E_HARD_MULS = 125, 47  # (z - 1)^2 / 3: 126 bits, 48 set
+Z_SQRS, Z_MULS = 63, 5
+MILLER_OPS = (MILLER_STEPS * ((12 + 3 + 13) * FP2_MUL_OPS + 6 * FP2_SQR_OPS + 4 * FP_MUL_OPS)
+              + MILLER_ADDS * ((11 + 13) * FP2_MUL_OPS + 2 * FP2_SQR_OPS + 4 * FP_MUL_OPS))
+FEXP_SQRS = E_HARD_SQRS + 3 * Z_SQRS  # 314 cyclotomic squares
+FEXP_MULS = E_HARD_MULS + 3 * Z_MULS + 1 + 3  # ^p, then the combination's three
+FEXP_OPS = ((33 + 2 * 18 + 5 + 18 * FEXP_MULS + 2 * 5) * FP2_MUL_OPS
+            + (3 + 9 * FEXP_SQRS) * FP2_SQR_OPS + 4 * FP_MUL_OPS)  # + ladder_ops(FP)
 FP_BYTES = 48
 FP2_BYTES = 96
+FP12_BYTES = 576
 MAX_FP_MULS_TABLES = 10  # Fp multiply launches the table build may make
 MAX_FP_MULS_CEREMONY = 100  # and the whole ceremony
 MAX_FR_MULS_PROOF = 4  # Fr multiply launches the proof may make
@@ -248,6 +288,9 @@ KERNELS = {
     "g2_double": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:82"),
     "g2_add": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:103"),
     "g2_madd": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:137"),
+    # K10 and K11: the pairing, XLA around K1 in the JAX package
+    "miller_loop": ("kzg_torch/csrc/pairing.cu", "kzg_tpu/ops/pairing.py:117"),
+    "final_exp": ("kzg_torch/csrc/pairing.cu", "kzg_tpu/ops/pairing.py:210"),
 }
 # kernel -> its CUDA functions in the -Xptxas -v report
 DEVICE_FUNCTIONS = {
@@ -267,6 +310,7 @@ DEVICE_FUNCTIONS = {
     "bucket_reduce": ["bucket_reduce_kernel"],
     "ladder_msm": ["ladder_msm_kernel"],
     "g2_double": ["g2_double_kernel"], "g2_add": ["g2_add_kernel"], "g2_madd": ["g2_madd_kernel"],
+    "miller_loop": ["miller_loop_kernel"], "final_exp": ["final_exp_kernel"],
 }
 SRS_CHUNK = 1 << 16  # the chunk bench.py passes to the JAX package's ceremony
 DBL_STEPS = 16
@@ -285,6 +329,24 @@ SETUP_SPOT_LANES = 64  # lanes of the 2^16 setup's G2 held to hostmath
 # the reference-size setup's launches: the 256-step ladder of each group on 9 lanes
 SETUP_REF_LAUNCHES = {"g1_double": 256, "g1_madd": 256, "g2_double": 256, "g2_madd": 256}
 G2_CHECK_SIZES = (1, 127, 128, 129)  # K9's edge checks; the paths' shapes are replayed
+VERIFY = f"verify_proof 2^{LOG_N} (the main path's C, the proof path's pi, x and y)"
+VERIFY_SIZES = (1, 16, 64)  # verify_proofs_batch's V; the largest is a driven path
+VERIFY_BATCH = f"verify_proofs_batch {VERIFY_SIZES[-1]} (reference-size openings, item 7 wrong)"
+PAIRING_CHECK_SIZES = (1, 2, 33, 128)  # K10's and K11's edge checks
+# the pairing kernels' chains of dependent Fp12 operations a lane: the Miller
+# loop's 63 squares, 63 + 5 line products and as many steps of T; the final
+# exponentiation's inversion, 314 squares, 2 + 66 multiplies and 3 Frobenius
+# maps (its conjugations are negations, not counted)
+PAIRING_CHAINS = {
+    "miller_loop": {"steps": MILLER_STEPS, "add_steps": MILLER_ADDS,
+                    "fp12_ops": 2 * (MILLER_STEPS + MILLER_ADDS) + MILLER_STEPS},
+    "final_exp": {"squares": FEXP_SQRS, "multiplies": 2 + FEXP_MULS,
+                  "fp12_ops": 1 + FEXP_SQRS + 2 + FEXP_MULS + 3},
+}
+# a verify of V items without generator tables: K10 and K11 once, the
+# 256-step ladders of x G2 (K9) and y G1 (K2), one add of each group
+VERIFY_LAUNCHES = {"miller_loop": 1, "final_exp": 1, "g1_double": 256, "g1_madd": 256,
+                   "g2_double": 256, "g2_madd": 256, "g1_add": 1, "g2_add": 1}
 # the kernels each path must launch
 PATH_KERNELS = {
     CEREMONY: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "g1_madd", "gen_fold"},
@@ -299,6 +361,10 @@ PATH_KERNELS = {
     SETUP: {"mont_mul_fr", "mont_mul_fp", "inv_batch_fp", "g1_madd", "gen_fold", "g2_madd"},
     LOAD: {"mont_mul_fp", "g1_double", "g1_add", "g2_double", "g2_add"},
     DECOMPRESS: {"mont_mul_fp", "g1_double", "g1_add"},
+    VERIFY: {"mont_mul_fp", "inv_batch_fp", "g1_double", "g1_madd", "g1_add", "g2_double",
+             "g2_madd", "g2_add", "miller_loop", "final_exp"},
+    VERIFY_BATCH: {"mont_mul_fp", "inv_batch_fp", "g1_double", "g1_madd", "g1_add",
+                   "g2_double", "g2_madd", "g2_add", "miller_loop", "final_exp"},
 }
 
 
@@ -450,6 +516,25 @@ def special_points(ctx, n: int):
     q[2][:, 12:16] = 0
     p[2][:, 16:20] = 0
     q[2][:, 16:20] = 0
+    return tuple(p), tuple(q)
+
+
+def pairing_case(ctx, n: int):
+    """Affine P (12, n) and Q (12, 2, n) for the pairing kernels: lane 0 the
+    generators, the last lane (n > 1) the zero words of an infinity lane, the
+    rest random canonical words (the Miller loop takes any; kernel and plain
+    version must agree on all of them)."""
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops.field import FP
+
+    gx, gy = cv.g1_gen_affine(ctx.device)
+    hx, hy = cv.g2_gen_affine(ctx.device)
+    p = [ctx.rand_field(FP, n) for _ in range(2)]
+    q = [ctx.rand_field(FP, 2 * n).view(FP.L, 2, n) for _ in range(2)]
+    for c, g in zip(p + q, (gx, gy, hx, hy)):
+        c[..., :1] = g
+        if n > 1:
+            c[..., -1] = 0
     return tuple(p), tuple(q)
 
 
@@ -841,6 +926,7 @@ def logging_calls():
     spec (kernel, shape, mode): what the replay needs to rebuild inputs of the
     same shapes. The wrappers are swapped in their modules and put back."""
     from kzg_torch.ops import curve as cv, field as fld, genmul, msm, scans
+    from kzg_torch.ops import pairing as pr
     from kzg_torch.ops import poly as polyops
 
     calls = collections.Counter()
@@ -871,6 +957,8 @@ def logging_calls():
         (cv, "g2_double", lambda p: ("g2_double", tuple(p[0].shape))),
         (cv, "g2_add", lambda p, q: ("g2_add", tuple(p[0].shape))),
         (cv, "g2_madd", lambda p, q: ("g2_madd", tuple(p[0].shape))),
+        (pr, "miller_loop", lambda p, q: ("miller_loop", tuple(p[0].shape))),
+        (pr, "final_exponentiation", lambda f: ("final_exp", tuple(f.shape))),
     ]
     originals = []
 
@@ -1123,7 +1211,11 @@ def phase_paths(ctx):
              REF: (ref_launches, ref_calls)}
     setup_paths, setup_times = phase_setup(ctx, gx, gy)
     paths.update(setup_paths)
-    return paths, {"setup": setup_times, "ladder_srs_ms": t_srs, "ladder_to_affine_ms": t_aff,
+    verify_paths, verify_times = phase_verify(ctx, srs, secret, (c, proof, ev),
+                                              (ref, c_ref, pf_ref, ev_ref))
+    paths.update(verify_paths)
+    return paths, {"setup": setup_times, "verify": verify_times, "ladder_srs_ms": t_srs,
+                   "ladder_to_affine_ms": t_aff,
                    "ceremony_first_ms": t_cer, "ceremony_ms": cer_warm[1],
                    "ceremony_runs_ms": cer_warm, "tables_ms": t_tab,
                    "tables_launches": dict(tab_launches),
@@ -1332,6 +1424,137 @@ def phase_setup(ctx, gx, gy):
     print(f"  {DECOMPRESS}: {t_dec:.1f} ms (compressing {t_cmp:.1f} ms, set-up); equals the "
           f"ceremony's words on all {gx.shape[1]} lanes", flush=True)
     print(f"  the setup phase (a)-(d), checks included: {out['phase_s']:.1f} s", flush=True)
+    return paths, out
+
+
+def phase_verify(ctx, srs, secret, opening, ref_opening):
+    """The verify paths, after the setup paths, each driven with the counts
+    set to 0, in a state without generator tables (as a verifier's process
+    is; the ceremony's and the setup's tables are set aside and put back):
+    (a) Evaluation.verify_proof of the main path's C and the proof path's
+    pi, x and y against the 2^20 SRS, whose s G2 comes from hostmath (set-
+    up): True in the first run and 3 warm runs, and False for a wrong y,
+    pi + G1 and C + G1; K10 and K11 once, the ladders' and the adds'
+    launches as VERIFY_LAUNCHES; (b) the reference-size proof against a
+    list of 10 SetupArtifact (hostmath's s^k G1, s^k G2); (c)
+    verify_proofs_batch at V = 1, 16 and 64 on openings of the
+    reference-size polynomial at seeded points (made by the port, set-up),
+    item 7 given a wrong y: the expected list, first and warm (V = 64 the
+    driven path); (d) bilinear_map equal to hostmath.pairing on two seeded
+    pairs (aG1, bG2), e(aG1, bG2) = e(abG1, G2), and one where either side
+    is infinity."""
+    from kzg_torch import G1Point, G2Point, Scalar, bilinear_map
+    from kzg_torch.ops import genmul
+    from kzg_torch.polynomial import Evaluation, verify_proofs_batch
+    from kzg_torch.trusted_setup import SetupArtifact
+    from kzg_torch.utils import hostmath as hm
+
+    t_phase = time.perf_counter()
+    out, paths = {}, {}
+    c, proof, ev = opening
+    ref, c_ref, pf_ref, ev_ref = ref_opening
+    srs.g2 = [G2Point.from_affine(hm.G2_GEN), G2Point.from_affine(hm.g2_mul(hm.G2_GEN, secret))]
+    tables = dict(genmul._tables)
+    genmul._tables.clear()
+    try:
+        # (a)
+        def verify():
+            return ev.verify_proof(proof, c, srs)
+
+        t_first, ok, launches, calls = drive(ctx, VERIFY, verify)
+        paths[VERIFY] = (launches, calls)
+        if ok is not True:
+            raise AssertionError(f"{VERIFY}: the proof does not verify")
+        for name, count in VERIFY_LAUNCHES.items():
+            if launches.get(name, 0) != count:
+                raise AssertionError(f"{VERIFY}: {launches.get(name, 0)} {name} launches "
+                                     f"(expected {count})")
+        runs = []
+        for _ in range(3):
+            ms, ok = ctx.time_once(verify)
+            runs.append(ms)
+            if ok is not True:
+                raise AssertionError(f"{VERIFY}: a warm run does not verify")
+        runs.sort()
+        wrong_y = Evaluation(ev.point, Scalar((ev.result.to_int() + 1) % hm.R))
+        pi_g = G1Point.from_affine(hm.g1_add(proof.affine(), hm.G1_GEN))
+        c_g = G1Point.from_affine(hm.g1_add(c.affine(), hm.G1_GEN))
+        for label, (e, pf, cm) in (("a wrong y", (wrong_y, proof, c)), ("pi + G1", (ev, pi_g, c)),
+                                   ("C + G1", (ev, proof, c_g))):
+            if e.verify_proof(pf, cm, srs) is not False:
+                raise AssertionError(f"{VERIFY}: {label} verifies")
+        out.update(first_ms=t_first, ms=runs[1], runs_ms=runs)
+        print(f"  {VERIFY}: {t_first:.1f} ms first, median of 3 warm runs {runs[1]:.1f} ms "
+              f"({runs}); True, and False for a wrong y, pi + G1 and C + G1", flush=True)
+
+        # (b)
+        pw = [pow(secret, k, hm.R) for k in range(REF_N)]
+        arts = [SetupArtifact(G1Point.from_affine(hm.g1_mul(hm.G1_GEN, k)),
+                              G2Point.from_affine(hm.g2_mul(hm.G2_GEN, k))) for k in pw]
+        out["ref_list_ms"], ok = ctx.time_once(
+            lambda: ev_ref.verify_proof(pf_ref, c_ref, arts, device=ctx.device))
+        if ok is not True:
+            raise AssertionError(f"the {REF_N}-coefficient proof does not verify against a "
+                                 f"list of SetupArtifact")
+        print(f"  verify_proof {REF_N} against a list of {REF_N} SetupArtifact: "
+              f"{out['ref_list_ms']:.1f} ms, True", flush=True)
+
+        # (c)
+        rnd = random.Random(SEED + 5)
+        openings = []
+        for _ in range(VERIFY_SIZES[-1]):
+            e = ref.evaluate(Scalar(rnd.randrange(hm.R)))
+            openings.append((e.generate_proof(ref, srs), e))
+        out["batch"] = {}
+        for v in VERIFY_SIZES:
+            pfs = [o[0] for o in openings[:v]]
+            evs = [o[1] for o in openings[:v]]
+            if v > 7:
+                evs[7] = Evaluation(evs[7].point, Scalar((evs[7].result.to_int() + 1) % hm.R))
+            want = [i != 7 for i in range(v)]
+
+            def batch():
+                return verify_proofs_batch(pfs, [c_ref] * v, evs, srs)
+
+            if v == VERIFY_SIZES[-1]:
+                t_b, got, launches, calls = drive(ctx, VERIFY_BATCH, batch)
+                paths[VERIFY_BATCH] = (launches, calls)
+            else:
+                t_b, got = ctx.time_once(batch)
+            warm = []
+            for _ in range(3):
+                ms, again = ctx.time_once(batch)
+                warm.append(ms)
+                got = got if again == got else None
+            warm.sort()
+            if got != want:
+                raise AssertionError(f"verify_proofs_batch {v}: {got}, expected {want}")
+            out["batch"][v] = {"first_ms": t_b, "ms": warm[1], "runs_ms": warm}
+            print(f"  verify_proofs_batch {v}: {t_b:.1f} ms first, median of 3 warm runs "
+                  f"{warm[1]:.1f} ms ({warm}); the expected list", flush=True)
+
+        # (d)
+        rnd = random.Random(SEED + 6)
+        G1, G2 = G1Point.from_affine, G2Point.from_affine
+        for _ in range(2):
+            a, b = rnd.randrange(1, hm.R), rnd.randrange(1, hm.R)
+            pa, qb = hm.g1_mul(hm.G1_GEN, a), hm.g2_mul(hm.G2_GEN, b)
+            t_e, e = ctx.time_once(lambda: bilinear_map(G1(pa), G2(qb), ctx.device))
+            if e != hm.pairing(pa, qb):
+                raise AssertionError("bilinear_map differs from hostmath.pairing")
+        if e != bilinear_map(G1(hm.g1_mul(hm.G1_GEN, a * b)), G2(hm.G2_GEN), ctx.device):
+            raise AssertionError("bilinear_map: e(aG1, bG2) != e(abG1, G2)")
+        for p1, p2 in ((G1(None), G2(qb)), (G1(pa), G2(None))):
+            if bilinear_map(p1, p2, ctx.device) != hm.FP12_ONE:
+                raise AssertionError("bilinear_map with infinity on one side is not one")
+        out["bilinear_map_ms"] = t_e
+        print(f"  bilinear_map: equals hostmath.pairing on two seeded pairs ({t_e:.1f} ms), "
+              f"e(aG1, bG2) = e(abG1, G2), one where either side is infinity", flush=True)
+    finally:
+        genmul._tables.clear()
+        genmul._tables.update(tables)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the verify phase (a)-(d), checks included: {out['phase_s']:.1f} s", flush=True)
     return paths, out
 
 
@@ -1582,6 +1805,18 @@ def replay_case(ctx, spec):
         return (lambda: flat(cv.g2_madd(view(p), view(qa))),
                 lambda: chunked(torch, cv.g2_madd_plain, (p, qa), n),
                 8 * FP2_BYTES * n, G2_MADD_OPS * n)
+    if name in ("miller_loop", "final_exp"):
+        from kzg_torch.ops import pairing as pr
+
+        n = shape[-1]
+        p, q = pairing_case(ctx, n)
+        if name == "miller_loop":
+            return (lambda: pr.miller_loop(p, q), lambda: pr.miller_loop_plain(p, q),
+                    (2 * FP_BYTES + 2 * FP2_BYTES + FP12_BYTES) * n, MILLER_OPS * n)
+        f = ctx.rand_field(FP, 12 * n).view(FP.L, 2, 3, 2, n)
+        f[..., -1] = 0  # an infinity lane's Miller value
+        return (lambda: pr.final_exponentiation(f), lambda: pr.final_exponentiation_plain(f),
+                2 * FP12_BYTES * n, (FEXP_OPS + ladder_ops(FP)) * n)
     if name == "dbl_chain":
         steps = spec[2]
         n = math.prod(shape[1:])
@@ -1807,6 +2042,60 @@ def phase_g2_edges(ctx):
                                          f"from the host oracle")
 
 
+def phase_pairing_edges(ctx):
+    """K10 and K11 against their plain versions (bit-identical) at n = 1,
+    2, 33 and 128 lanes: lane 0 the generator pair, the last lane (n > 1)
+    an infinity lane of zero words, the others seeded pairs s G1, t G2 (the
+    ladders on K2 and K9); K11 on those lanes' Miller values and one lane
+    of random Fp12 words; lane 0's pairing against hostmath. Each kernel
+    launches once a size; its plain version, whose cost is its launches and
+    not its lanes (about 9 s a call on the card), runs once over every
+    size's lanes side by side, and each launch is held to its slice."""
+    torch = ctx.torch
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.ops import fp12
+    from kzg_torch.ops import pairing as pr
+    from kzg_torch.ops.field import FP
+    from kzg_torch.utils import hostmath as hm
+
+    rnd = random.Random(SEED + 7)
+    total = sum(PAIRING_CHECK_SIZES)
+    k1, k2 = (cv.fr_std_words([rnd.randrange(1, hm.R) for _ in range(total)], ctx.device)
+              for _ in range(2))
+    (x1, y1), _ = cv.to_affine(cv.mul_scalar_affine(cv.g1_gen_affine(ctx.device, total), k1))
+    (x2, y2), _ = cv.g2_to_affine(cv.mul_scalar_affine(cv.g2_gen_affine(ctx.device, total), k2,
+                                                       group=cv.G2))
+    coords = (x1, y1, x2, y2)
+    gens = cv.g1_gen_affine(ctx.device) + cv.g2_gen_affine(ctx.device)
+    cuts, lo = [], 0
+    for n in PAIRING_CHECK_SIZES:
+        for c, g in zip(coords, gens):
+            c[..., lo : lo + 1] = g
+            if n > 1:
+                c[..., lo + n - 1] = 0
+        cuts.append((n, lo))
+        lo += n
+    want_f = pr.miller_loop_plain((x1, y1), (x2, y2))
+    fs = []
+    for n, lo in cuts:
+        seg = tuple(c[..., lo : lo + n].contiguous() for c in coords)
+        f = pr.miller_loop(seg[:2], seg[2:])
+        check(ctx, f"miller_loop (n={n}, the generators, an infinity lane, seeded pairs)", f,
+              want_f[..., lo : lo + n])
+        fs.append(torch.cat([f, ctx.rand_field(FP, 12).view(FP.L, 2, 3, 2, 1)], dim=-1))
+    want_g = pr.final_exponentiation_plain(torch.cat(fs, dim=-1).contiguous())
+    e_gen = hm.pairing(hm.G1_GEN, hm.G2_GEN)
+    lo = 0
+    for f in fs:
+        n = f.shape[-1]
+        g = pr.final_exponentiation(f.contiguous())
+        check(ctx, f"final_exp (n={n}, those Miller values and random words)", g,
+              want_g[..., lo : lo + n])
+        if fp12.to_ints(g[..., 0]) != e_gen:
+            raise AssertionError("final_exp(miller_loop(G1, G2)) differs from hostmath.pairing")
+        lo += n
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "kzg_torch", "csrc")):
@@ -1876,13 +2165,17 @@ def main() -> int:
     phase_ladder_edges(ctx)
     print("== G2's point formulas (K9), exceptional cases", flush=True)
     phase_g2_edges(ctx)
+    print("== the pairing's Miller loop (K10) and final exponentiation (K11), edge lanes",
+          flush=True)
+    phase_pairing_edges(ctx)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # each kernel's numbers come from the first of these paths that runs it;
         # its launches on every path stand beside them
         label = next((lb for lb in (MAIN, CEREMONY, PROOF, BATCHED, REF, SETUP, LOAD,
-                                    DECOMPRESS, SETUP_REF) if name in per_path[lb]), None)
+                                    DECOMPRESS, SETUP_REF, VERIFY) if name in per_path[lb]),
+                     None)
         if label is None and name not in off_path:
             return fail(f"{name} was launched on no path")
         t = per_path[label][name] if label is not None else off_path[name]
@@ -1895,6 +2188,7 @@ def main() -> int:
             "registers": max(usage[f]["registers"] for f in DEVICE_FUNCTIONS[name]),
             "spill_bytes": max(usage[f]["spill_stores"] + usage[f]["spill_loads"]
                                for f in DEVICE_FUNCTIONS[name]),
+            "stack_bytes": max(usage[f]["stack"] for f in DEVICE_FUNCTIONS[name]),
             "launches_by_path": {lb: paths[lb][0].get(name, 0) for lb in paths},
         })
         if name == "bucket_reduce":
@@ -1904,6 +2198,15 @@ def main() -> int:
                   f"{BUCKET_REDUCE_CHAIN['adds']} dependent adds and "
                   f"{BUCKET_REDUCE_CHAIN['doubles']} doublings, {t['ms'] / chain * 1e3:.1f} us a "
                   f"point operation", flush=True)
+        if name in PAIRING_CHAINS:
+            chain = PAIRING_CHAINS[name]
+            kernels[-1]["critical_path"] = dict(chain, ms_per_fp12_op=t["ms"] / chain["fp12_ops"])
+            batch = per_path[VERIFY_BATCH][name]
+            kernels[-1]["at_verify_batch"] = {f: batch[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                                    "calls", "launches")}
+            print(f"  {name}: {t['ms']:.4f} ms over a chain of {chain['fp12_ops']} dependent "
+                  f"Fp12 operations, {t['ms'] / chain['fp12_ops'] * 1e3:.1f} us each; at "
+                  f"{VERIFY_BATCH}: {batch['ms']:.4f} ms", flush=True)
         if name == "ladder_msm":
             spec = next(spec for spec in paths[label][1] if spec[0] == name)
             ladder_chain_run = ctx.ladder_chains[spec]

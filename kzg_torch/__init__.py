@@ -5,7 +5,7 @@ points run on the first CUDA card unless the caller passes ``device="cpu"``.
 The kernels (``csrc/``) are built with nvcc on first use.
 """
 
-from .curves import G1Point, G2Point
+from .curves import G1Point, G2Point, bilinear_map
 from .errors import CliError, KzgError, ProtocolError, SerializationError
 from .polynomial import Evaluation, Polynomial
 from .scalar import Scalar
@@ -14,6 +14,7 @@ from .trusted_setup import DeviceSRS, SetupArtifact, SetupArtifactsGenerator, ge
 __all__ = [
     "G1Point",
     "G2Point",
+    "bilinear_map",
     "CliError",
     "KzgError",
     "ProtocolError",

@@ -45,7 +45,7 @@ static __constant__ u32 FR_N[8] = {
 static __constant__ u32 FR_ONE[8] = {
     0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
     0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
-// Fermat exponents N - 2 (the inversion ladder of inv_batch.cu)
+// Fermat exponents N - 2 (fermat_inv below)
 static __constant__ u32 FP_PM2[12] = {
     0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
     0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
@@ -745,6 +745,35 @@ __device__ __forceinline__ Elem<L> one() {
 }
 
 __device__ __forceinline__ fp_t fp_one() { return one<12>(); }
+
+// x^(N-2) = x^-1 for x != 0, and 0 for x = 0, by fixed 4-bit windows of
+// N - 2 from the top: 14 multiplies for the table, then 4 squares and at
+// most one multiply a window. One thread; the table lives in local memory.
+// Used by the batched inversion (inv_batch.cu) and the final
+// exponentiation's one Fp inverse a lane (pairing.cu).
+template <int L>
+__device__ __noinline__ Elem<L> fermat_inv(Elem<L> x) {
+  Elem<L> tbl[16];
+  tbl[0] = one<L>();
+  tbl[1] = x;
+#pragma unroll 1
+  for (int k = 2; k < 16; k++) tbl[k] = mont_mul<L>(tbl[k - 1], x);
+  Elem<L> acc = tbl[0];
+  bool started = false;
+#pragma unroll 1
+  for (int k = 8 * L - 1; k >= 0; k--) {
+    const u32 nib = (Modulus<L>::pm2(k / 8) >> (4 * (k % 8))) & 15u;
+    if (started) {
+#pragma unroll 1
+      for (int s = 0; s < 4; s++) acc = mont_sqr<L>(acc);
+      if (nib) acc = mont_mul<L>(acc, tbl[nib]);
+    } else if (nib) {
+      acc = tbl[nib];
+      started = true;
+    }
+  }
+  return acc;
+}
 
 // Limb-major global layout: word j of lane i at base[j * stride + i].
 template <int L>

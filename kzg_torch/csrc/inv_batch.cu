@@ -15,7 +15,7 @@
 //             registers); a product tree over the block's run totals in
 //             shared memory gives the block total.
 //   inv_top:  one block: the same over the block totals, one Fermat ladder
-//             (x^(N-2), fixed 4-bit windows, N - 2 as __constant__ words)
+//             (fermat_inv, field.cuh: x^(N-2) in fixed 4-bit windows)
 //             on the root by one thread, then back down the tree and the
 //             runs: the block totals' inverses, in place.
 //   inv_down: each block rebuilds its tree from the run totals (the last
@@ -117,33 +117,6 @@ __device__ __forceinline__ void tree_down(Elem<L>* node, int t) {
     }
   }
   __syncthreads();
-}
-
-// x^(N-2) = x^-1 for x != 0, by fixed 4-bit windows of N - 2 from the top:
-// 14 multiplies for the table, then 4 squares and at most one multiply a
-// window. One thread; the table lives in local memory.
-template <int L>
-__device__ __noinline__ Elem<L> fermat_inv(Elem<L> x) {
-  Elem<L> tbl[16];
-  tbl[0] = one<L>();
-  tbl[1] = x;
-#pragma unroll 1
-  for (int k = 2; k < 16; k++) tbl[k] = mont_mul<L>(tbl[k - 1], x);
-  Elem<L> acc = tbl[0];
-  bool started = false;
-#pragma unroll 1
-  for (int k = 8 * L - 1; k >= 0; k--) {
-    const u32 nib = (Modulus<L>::pm2(k / 8) >> (4 * (k % 8))) & 15u;
-    if (started) {
-#pragma unroll 1
-      for (int s = 0; s < 4; s++) acc = mont_sqr<L>(acc);
-      if (nib) acc = mont_mul<L>(acc, tbl[nib]);
-    } else if (nib) {
-      acc = tbl[nib];
-      started = true;
-    }
-  }
-  return acc;
 }
 
 template <int L>

@@ -6,7 +6,7 @@ host affine ints, and converts between them on demand: an MSM result stays
 on the device until its affine form, compression or JSON is asked for. A G2
 point holds host affine ints. Compression follows the ZCash convention (48
 bytes for G1, 96 for G2; src/curves.rs:99-110, :259-343) at the host
-boundary.
+boundary. ``bilinear_map`` is the reference's pairing (src/curves.rs:355-371).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 from .errors import SerializationError
 from .ops import curve as cv
 from .utils import hostmath as hm
+from .utils.device import resolve_device
 
 _UNSET = object()
 
@@ -73,8 +74,8 @@ class G1Point:
 
 class G2Point:
     """A G2 point (``kzg_tpu/curves.py:129-167``): host affine ints, their
-    compression and JSON. Its group operations wait for the port's verify
-    slice."""
+    compression and JSON. Its group operations run on the device where they
+    are needed (``ops/curve.py``'s G2 kernels, K9)."""
 
     __slots__ = ("_affine",)
 
@@ -125,3 +126,14 @@ class G2Point:
 
     def __repr__(self):
         return f"G2Point({self.affine()})"
+
+
+def bilinear_map(p1: G1Point, p2: G2Point, device=None):
+    """The canonical reduced optimal ate pairing e(P, Q) as the oracle's Fp12
+    tuple of ints (``kzg_tpu/curves.py:169``; src/curves.rs:355-371, blst's
+    miller loop and final exponentiation): the Miller loop (K10) and the
+    final exponentiation (K11) on ``device`` (the card unless the caller asks
+    for the CPU). Infinity on either side gives one (``hostmath.FP12_ONE``)."""
+    from .ops import pairing as devpair
+
+    return devpair.pairing_points(p1, p2, resolve_device(device))

@@ -8,9 +8,9 @@ sources and flags, so an unchanged tree reuses it and a changed one rebuilds.
 Nothing is built when a module is imported: the first kernel launch builds.
 
 Each source is compiled with ``-Xptxas -v``; the log is kept beside the
-library and ``ptxas_usage`` reads each kernel's registers, spills and shared
-memory from it. Each C entry point returns ``cudaGetLastError()`` after its
-launch; ``launch`` raises on a non-zero code. ``LAUNCHES`` counts launches
+library and ``ptxas_usage`` reads each kernel's registers, spills, shared
+memory and stack from it. Each C entry point returns ``cudaGetLastError()``
+after its launch; ``launch`` raises on a non-zero code. ``LAUNCHES`` counts launches
 per kernel name, one per launch and nowhere else, so a run can show which
 kernels it went through.
 """
@@ -63,6 +63,8 @@ SIGNATURES = {
     "kzg_g2_double": [_P] * 6 + [_I, _P],
     "kzg_g2_add": [_P] * 9 + [_I, _P],
     "kzg_g2_madd": [_P] * 8 + [_I, _P],
+    "kzg_miller_loop": [_P] * 5 + [_I, _P],
+    "kzg_final_exp": [_P] * 3 + [_I, _P],
 }
 
 _lib = None
@@ -147,7 +149,8 @@ def _demangle(name: str) -> str:
 def ptxas_usage(log: Path | None = None) -> dict:
     """Per kernel, from the build's ``-Xptxas -v`` log (or another such
     log): registers a thread, spill stores and loads (bytes), static shared
-    memory (bytes)."""
+    memory (bytes), stack frame (bytes; the out-of-line helpers' frames are
+    their own, reported apart)."""
     log = log or library_path().with_suffix(".ptxas.txt")
     usage, current = {}, None
     for line in log.read_text().splitlines() if log.exists() else []:
@@ -155,7 +158,7 @@ def ptxas_usage(log: Path | None = None) -> dict:
         if m:
             current = _demangle(m.group(1))
             usage[current] = {"registers": None, "spill_stores": 0, "spill_loads": 0,
-                              "smem": 0}
+                              "smem": 0, "stack": 0}
             continue
         # a device function's own properties (a __noinline__ helper) follow
         # its callers' reports: they are not the kernel's
@@ -166,6 +169,9 @@ def ptxas_usage(log: Path | None = None) -> dict:
             continue
         if current is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            usage[current]["stack"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             usage[current]["spill_stores"] = int(m.group(1))

@@ -9,7 +9,9 @@ the complex square as one of two, so on a CUDA tensor each is one launch of
 K1. Every value is canonical, so the words equal the JAX package's.
 
 The G2 point formulas (``curve.g2_*``) run on these operations in their
-plain versions and on the same arithmetic in ``csrc/g2.cuh`` in K9.
+plain versions and on the same arithmetic in ``csrc/g2.cuh`` in K9; so do
+the Fp6 / Fp12 towers (``fp6.py``, ``fp12.py``), whose coefficient axes
+follow the component axis, and the pairing's plain versions.
 """
 
 from __future__ import annotations
@@ -63,6 +65,12 @@ def mul_by_fp(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def conj(a: torch.Tensor) -> torch.Tensor:
     return torch.stack([a[:, 0], FP.neg(a[:, 1])], dim=1)
+
+
+def mul_by_xi(a: torch.Tensor) -> torch.Tensor:
+    """Times the sextic non-residue XI = 1 + u: (c0 - c1, c0 + c1)."""
+    a0, a1 = a[:, 0], a[:, 1]
+    return torch.stack([FP.sub(a0, a1), FP.add(a0, a1)], dim=1)
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ exactly:
   - divide_by_root rejects a constant non-zero polynomial and a non-root
     through the rebuilt-constant-term check (src/polynomial.rs:159-192)
   - commit requires degree + 1 <= len(setup) (src/polynomial.rs:201-205)
-Verifying a proof needs the pairing, a later slice of the port.
+  - verification compares e(proof, s G2 - x G2) with e(C - y G1, G2)
+    (src/polynomial.rs:276-294), both pairings in one batched call
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import torch
 from .curves import G1Point
 from .errors import ProtocolError
 from .ops import curve as cv
+from .ops import genmul
 from .ops import msm as msmops
+from .ops import pairing as devpair
 from .ops import poly as polyops
 from .ops.field import FR
 from .scalar import Scalar
@@ -201,6 +204,11 @@ class Evaluation:
         constant = Polynomial.from_constant(self.result, polynomial.device)
         return polynomial.sub(constant).divide_by_root(self.point).commit(setup)
 
+    def verify_proof(self, proof: G1Point, commitment: G1Point, setup, device=None) -> bool:
+        """e(proof, s G2 - x G2) == e(C - y G1, G2) (src/polynomial.rs:276-294),
+        through ``verify_proofs_batch`` with one item."""
+        return verify_proofs_batch([proof], [commitment], [self], setup, device)[0]
+
     def to_json(self) -> dict:
         return {"point": self.point.to_json(), "result": self.result.to_json()}
 
@@ -210,3 +218,63 @@ class Evaluation:
 
     def __repr__(self):
         return f"Evaluation(point={self.point}, result={self.result})"
+
+
+def _g1_lanes(points, device):
+    """G1Points -> one Jacobian triple (12, V) on ``device``: a device
+    point's words as they are, a host point through ``cv.g1_to_device``
+    (infinity as the zero words)."""
+    cols = []
+    for pt in points:
+        if pt._jac is not None:
+            cols.append(tuple(c.reshape(cv.FP.L, 1).to(device) for c in pt._jac))
+        else:
+            cols.append(cv.g1_to_device([pt.affine()], device))
+    return tuple(torch.cat([c[k] for c in cols], dim=1) for k in range(3))
+
+
+def verify_proofs_batch(proofs, commitments, evaluations, setup, device=None) -> list[bool]:
+    """Verify V opening proofs in one batched pairing call
+    (``kzg_tpu/polynomial.py:384-446``); item i holds as
+    ``Evaluation.verify_proof`` does: e(pi_i, s G2 - x_i G2) ==
+    e(C_i - y_i G1, G2). ``setup`` is a list of SetupArtifact or a
+    DeviceSRS (its ``g2[1]`` is s G2); the work runs on the DeviceSRS's
+    device, else on ``device`` (the card unless the caller asks for the
+    CPU).
+
+    x_i G2 and y_i G1 are ``genmul``'s generator multiplications (batched
+    over V), s G2 - x_i G2 and C_i - y_i G1 one G2 and one G1 add; then
+    lanes [0, V) pair (pi_i, s G2 - x_i G2) and lanes [V, 2V)
+    (C_i - y_i G1, G2) in one ``pairing`` call (K10 and K11 once each), and
+    item i compares lane i with lane V + i. The JAX package pads V to a
+    power of two so that one compiled XLA program serves every batch; here
+    nothing is compiled per shape, so V is not padded."""
+    from .trusted_setup import DeviceSRS
+
+    if len(setup) < 2:
+        raise ProtocolError("At least 2 setup artifacts are required for verification")
+    v = len(proofs)
+    if not (len(commitments) == len(evaluations) == v):
+        raise ProtocolError("proofs/commitments/evaluations length mismatch")
+    if v == 0:
+        return []
+    if isinstance(setup, DeviceSRS):
+        device, s_g2 = setup.device, setup.g2[1]
+    else:
+        device, s_g2 = resolve_device(device), setup[1].g2
+
+    xs = cv.fr_std_words([ev.point.to_int() for ev in evaluations], device)
+    ys = cv.fr_std_words([ev.result.to_int() for ev in evaluations], device)
+    # s G2 - x G2 (the left pairings' G2 side)
+    s_jac = cv.g2_to_device([s_g2.affine()] * v, device)
+    lhs_g2 = cv.g2_add(s_jac, cv.neg(genmul.mul_g2_gen(xs)))
+    # C - y G1 (the right pairings' G1 side)
+    rhs_g1 = cv.g1_add(_g1_lanes(commitments, device), cv.neg(genmul.mul_g1_gen(ys)))
+
+    g1_all = tuple(torch.cat([a, b], dim=1) for a, b in zip(_g1_lanes(proofs, device), rhs_g1))
+    g2_gen = cv.g2_to_device([hm.G2_GEN] * v, device)
+    g2_all = tuple(torch.cat([a, b], dim=-1) for a, b in zip(lhs_g2, g2_gen))
+    (g1x, g1y), g1inf = cv.to_affine(g1_all)
+    (g2x, g2y), g2inf = cv.g2_to_affine(g2_all)
+    out = devpair.pairing((g1x, g1y), g1inf, (g2x, g2y), g2inf)
+    return (out[..., :v] == out[..., v:]).flatten(0, 3).all(dim=0).tolist()

@@ -156,7 +156,10 @@ def test_from_jax_limbs_runs_on_the_card_unless_asked():
 def test_import_pulls_in_neither_jax_nor_kzg_tpu():
     code = ("import sys, kzg_torch, kzg_torch.artifacts, kzg_torch.convert, kzg_torch.ops.scans,"
             " kzg_torch.ops.genmul, kzg_torch.ops.poly, kzg_torch.ops.fp2, kzg_torch.ops.codec,"
+            " kzg_torch.ops.fp6, kzg_torch.ops.fp12, kzg_torch.ops.pairing,"
             " kzg_torch.curves, kzg_torch.trusted_setup, kzg_torch.utils.g2_cases;"
+            "from kzg_torch import bilinear_map;"
+            "from kzg_torch.polynomial import verify_proofs_batch;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'kzg_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

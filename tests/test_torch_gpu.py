@@ -335,3 +335,52 @@ def test_setup_on_the_card_equals_golden(cuda, monkeypatch):
             genmul.gen_tables(cuda, cv.G2)
         setup = generate_setup(secret, 10, device=cuda)
         assert art.dumps([a.to_json() for a in setup]) == want, built
+
+
+def _pairing_lanes(n, cuda):
+    """Affine P (12, n), Q (12, 2, n): lane 0 the generators, the last lane
+    (n > 1) the zero words of an infinity lane, the rest seeded canonical
+    words (the Miller loop takes any)."""
+    p = [_rand(FP, n, 40 + k).to(cuda) for k in range(2)]
+    q = [_rand(FP, 2 * n, 42 + k).view(FP.L, 2, n).to(cuda) for k in range(2)]
+    gens = cv.g1_gen_affine(cuda) + cv.g2_gen_affine(cuda)
+    for c, g in zip(p + q, gens):
+        c[..., :1] = g
+        if n > 1:
+            c[..., -1] = 0
+    return tuple(p), tuple(q)
+
+
+@pytest.mark.parametrize("n", [1, 33, 128])
+def test_pairing_kernels_match_plain(cuda, n):
+    """K10 and K11 against their plain versions (the towers on the card's
+    FP.mul), one launch each; K11 on K10's outputs and a lane of random
+    words; lane 0 (the generators) against hostmath's pairing."""
+    from kzg_torch.ops import _build, fp12
+    from kzg_torch.ops import pairing as pr
+
+    p, q = _pairing_lanes(n, cuda)
+    before = dict(_build.LAUNCHES)
+    f = pr.miller_loop(p, q)
+    assert _same(f, pr.miller_loop_plain(p, q))
+    f = torch.cat([f, _rand(FP, 12, 44).view(FP.L, 2, 3, 2, 1).to(cuda)], dim=-1)
+    g = pr.final_exponentiation(f)
+    assert _same(g, pr.final_exponentiation_plain(f))
+    for name in ("miller_loop", "final_exp"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    assert fp12.to_ints(g[..., 0]) == hm.pairing(hm.G1_GEN, hm.G2_GEN)
+
+
+def test_pairing_wrappers_refuse_mismatched_operands(cuda):
+    from kzg_torch.ops import pairing as pr
+
+    p, q = _pairing_lanes(4, cuda)
+    with pytest.raises(ValueError):
+        pr.miller_loop(p, (q[0][..., :3], q[1][..., :3]))
+    with pytest.raises(ValueError):
+        pr.miller_loop((p[0].cpu(), p[1].cpu()), q)
+    f = torch.zeros(FP.L, 2, 3, 2, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        pr.final_exponentiation(f[:, :, :2])
+    with pytest.raises(TypeError):
+        pr.final_exponentiation(f.long())
