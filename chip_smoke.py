@@ -60,26 +60,29 @@ Phases, in order; any failure exits non-zero and prints no result:
      K2 launch. The proof must equal the host oracle as the 2^20 one does.
    - setup, after those paths (phase_setup): (a) the reference CLI's
      trusted-setup, generate_setup of 10 points from tests/golden/setup.json's
-     secret with no generator tables (256 launches each of K2's double and
-     madd and K9's double and madd: SETUP_REF_LAUNCHES), its bytes and
+     secret with no generator tables (one launch of each group's ladder
+     kernel and none of K2's or K9's formulas: SETUP_REF_LAUNCHES), its bytes and
      SetupArtifactsGenerator's first 10 items' those of the golden file and
      of hostmath; (b) generate_setup of 2^16 points (the tables built in
      the run): G1 equal to chunked_srs_g1's words and G2 by K9 to the plain
      route on the card (tables and fold on fp2's plain operations) on every
      lane, G2 to hostmath's s^k G2 on 64 lanes, the first and last among
      them; (c) save_setup, then load_setup through the two device batches
-     with the subgroup checks ([r] P by K2 for G1 and K9 for G2): the same
-     bytes back, an off-subgroup G2 point, an off-curve G1 point and x >= p
+     with the subgroup checks ([r] P, one ladder launch a group:
+     LOAD_LAUNCHES): the same bytes back, an off-subgroup G2 point, an
+     off-curve G1 point and x >= p
      rejected with kzg_tpu's messages, and DeviceSRS.load's words those of
      DeviceSRS.from_artifacts; (d) the 2^20 ceremony's points compressed,
-     then g1_decompress_batch with the subgroup check: the ceremony's words.
+     then g1_decompress_batch with the subgroup check (one G1 ladder launch:
+     DECOMPRESS_LAUNCHES): the ceremony's words.
    - verify, after the setup paths and with the generator tables set aside
      (a verifier's process has none; phase_verify): Evaluation.verify_proof
      of the main path's C and the proof path's pi, x and y against the 2^20
      SRS (s G2 from hostmath, set-up): True first and in 3 warm runs, False
-     for a wrong y, pi + G1 and C + G1; K10 and K11 once, 256 launches each
-     of K2's and K9's double and madd and one add of each group
-     (VERIFY_LAUNCHES). Then the 10-coefficient proof against a list of 10
+     for a wrong y, pi + G1 and C + G1; K10 and K11 once, the x G2 and y G1
+     ladders one launch each and one add of each group, no other K2 or K9
+     launch (VERIFY_LAUNCHES, verify_proofs_batch 64 too). Then the
+     10-coefficient proof against a list of 10
      SetupArtifact, verify_proofs_batch at V = 1, 16 and 64 on openings of
      that polynomial with item 7 given a wrong y (V = 64 a driven path),
      and bilinear_map against hostmath.pairing on two seeded pairs, its
@@ -89,6 +92,16 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. replay: every logged call again at its shapes on seeded inputs, kernel
    against plain version (bit-identical), then timed by CUDA events. A
    kernel's ms, plain_ms and bound are sums over the calls its path made.
+   The ladder calls first (phase_ladders): each launched and timed, then
+   both groups' ladder kernels on the case table of
+   kzg_torch/utils/mul_cases.py at n = 1, 9, 127, 128, 129 and 2^16, one
+   scalar a lane (k = 0, 1, r - 1, 2^256 - 1, r, r + 2, and r + 2 on three
+   lanes of one warp) and [r] P (a subgroup point, infinity, a point
+   outside the subgroup), the case lanes against the host oracles; every
+   one of these calls held to the plain ladder on all its lanes up to 512
+   and on its first and last 256 beyond, the plain ladder run once a group
+   over all their checked lanes side by side (its plain_ms each replayed
+   call's).
    The kernels no path launches are checked and timed at fixed shapes: the
    streaming scan in both modes at the shape the fused scan ran on the main
    path (m steps over C chunks), the fold over pre-gathered entries (K8) at
@@ -98,7 +111,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    so that two checkouts' runs compare field.cuh). K2's double and add,
    which no path launches since K2b, at the batched commit's shapes: the
    route K2b replaced (256 doubles and 256 exact madds of 8192 lanes, adds
-   of 4096, 2048, .., 1 lanes), each checked and timed
+   of 4096, 2048, .., 1 lanes), each checked and timed, and K9's doubling
+   at 2^16 lanes (the ladders took it off every path)
    (scripts/batched_commit_probe.py times that whole route against K2b).
    Then the stage times of the ceremony and of the proof.
 6. profile: one warm 2^20 commit under torch.profiler, device time by kernel;
@@ -134,7 +148,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    read slower for it.
 8. a line {"kernels": [...]} (the bucket reduction's and K2b's entries also
    give their critical paths, BUCKET_REDUCE_CHAIN and ladder_chain, and the
-   ms per point operation on them; K10's and K11's their chains of Fp12
+   ms per point operation on them; the ladder kernels' each path's call,
+   its chain (mul_chain) and us per point operation; K10's and K11's their chains of Fp12
    operations, PAIRING_CHAINS, and their numbers at the batch of 64), then
    the last line {"ok": true,
    "device": ...}.
@@ -186,7 +201,16 @@ add for each non-zero digit but a bucket's first, the running sum over the
 buckets from the highest digit down, and c doublings and an add a window
 below the top one. At the batched path's 8192 random scalars the buckets
 win (about 0.095 ms, at c = 10); at a lane or two, the ladder. It reads 128
-bytes a lane (a mask byte more) and writes one point. The pairing's
+bytes a lane (a mask byte more) and writes one point. A scalar
+multiplication (mul_cost; the ladder kernels) needs, on a live lane with
+k != 0, bitlen(k) - 1 doublings and the fewer mixed adds of the lane's own
+double-and-add (popcount(k) - 1) and of a fixed 4-bit window (a 14-point
+table, then an add a non-zero window below the top one): [r] P 254
+doublings and 66 madds, against the kernel's 255 and 134. It reads the
+affine base and 32 bytes of scalar a lane and writes a Jacobian point. A
+call of a few lanes runs one thread's chain (mul_chain: a doubling a step
+from the top set bit of any lane, a madd a step where some lane has the
+bit), which stands beside the bound. The pairing's
 kernels are counted in the cheapest published forms of its Fp2 operations
 (MILLER_OPS, FEXP_OPS: a sparse line product, cyclotomic squares in the
 hard part): about 3.4 M IMADs a lane for the Miller loop and 5.5 M for the
@@ -212,6 +236,8 @@ LOG_N = 20
 BATCHED_N = 8192  # below the fixed-base threshold: the batched-affine commit
 REF_N = 10  # the reference CLI's polynomials (degree 9)
 LADDER_CHECK_SIZES = (REF_N, 129, BATCHED_N)  # K2b's edge checks: the paths' n, a partial block
+MUL_CHECK_SIZES = (1, REF_N - 1, 127, 128, 129, 1 << 16)  # the ladder kernels' edge checks
+MUL_PLAIN_LANES = 256  # a wider ladder call's plain check: its first and last this many lanes
 CHECK_LANES = 1 << 16  # lanes of the exceptional-case checks of phase 3
 FOLD_CHECK_LANES = 4096  # the fold's: phase 5 checks it again at 2^16 lanes
 PLAIN_CHUNK = 1 << 20  # lanes per plain call in the replays: bounds its temporaries
@@ -288,6 +314,10 @@ KERNELS = {
     "g2_double": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:82"),
     "g2_add": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:103"),
     "g2_madd": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:137"),
+    # K2 and K9 as the scalar multiplications use them (kzg_tpu/ops/curve.py:205-245,
+    # mul_scalar and mul_scalar_affine): one launch a call, each group
+    "g1_ladder": ("kzg_torch/csrc/mul_ladder.cu", "kzg_tpu/ops/pallas_curve.py:260"),
+    "g2_ladder": ("kzg_torch/csrc/mul_ladder.cu", "kzg_tpu/ops/pallas_curve.py:260"),
     # K10 and K11: the pairing, XLA around K1 in the JAX package
     "miller_loop": ("kzg_torch/csrc/pairing.cu", "kzg_tpu/ops/pairing.py:117"),
     "final_exp": ("kzg_torch/csrc/pairing.cu", "kzg_tpu/ops/pairing.py:210"),
@@ -310,6 +340,7 @@ DEVICE_FUNCTIONS = {
     "bucket_reduce": ["bucket_reduce_kernel"],
     "ladder_msm": ["ladder_msm_kernel"],
     "g2_double": ["g2_double_kernel"], "g2_add": ["g2_add_kernel"], "g2_madd": ["g2_madd_kernel"],
+    "g1_ladder": ["g1_ladder_kernel"], "g2_ladder": ["g2_ladder_kernel"],
     "miller_loop": ["miller_loop_kernel"], "final_exp": ["final_exp_kernel"],
 }
 SRS_CHUNK = 1 << 16  # the chunk bench.py passes to the JAX package's ceremony
@@ -326,8 +357,15 @@ SETUP = f"generate_setup 2^{LOG_SETUP}"
 LOAD = f"load_setup 2^{LOG_SETUP} (both device batches, subgroup-checked)"
 DECOMPRESS = f"g1_decompress_batch 2^{LOG_N} (the ceremony's points, subgroup-checked)"
 SETUP_SPOT_LANES = 64  # lanes of the 2^16 setup's G2 held to hostmath
-# the reference-size setup's launches: the 256-step ladder of each group on 9 lanes
-SETUP_REF_LAUNCHES = {"g1_double": 256, "g1_madd": 256, "g2_double": 256, "g2_madd": 256}
+# the scalar multiplications' launches: one ladder a group a call, and none of
+# the point formulas' kernels the ladders replaced
+NO_FORMULAS = {"g1_double": 0, "g1_madd": 0, "g1_add": 0, "g2_double": 0, "g2_madd": 0,
+               "g2_add": 0}
+# the reference-size setup (the generator multiplications of 9 lanes) and the
+# 2^16 setup's load (the subgroup check of each group's batch)
+SETUP_REF_LAUNCHES = LOAD_LAUNCHES = dict(NO_FORMULAS, g1_ladder=1, g2_ladder=1)
+# the 2^20 decompression: the G1 subgroup check
+DECOMPRESS_LAUNCHES = dict(NO_FORMULAS, g1_ladder=1)
 G2_CHECK_SIZES = (1, 127, 128, 129)  # K9's edge checks; the paths' shapes are replayed
 VERIFY = f"verify_proof 2^{LOG_N} (the main path's C, the proof path's pi, x and y)"
 VERIFY_SIZES = (1, 16, 64)  # verify_proofs_batch's V; the largest is a driven path
@@ -344,9 +382,8 @@ PAIRING_CHAINS = {
                   "fp12_ops": 1 + FEXP_SQRS + 2 + FEXP_MULS + 3},
 }
 # a verify of V items without generator tables: K10 and K11 once, the
-# 256-step ladders of x G2 (K9) and y G1 (K2), one add of each group
-VERIFY_LAUNCHES = {"miller_loop": 1, "final_exp": 1, "g1_double": 256, "g1_madd": 256,
-                   "g2_double": 256, "g2_madd": 256, "g1_add": 1, "g2_add": 1}
+# ladders of x G2 and y G1, one add of each group
+VERIFY_LAUNCHES = dict(SETUP_REF_LAUNCHES, miller_loop=1, final_exp=1, g1_add=1, g2_add=1)
 # the kernels each path must launch
 PATH_KERNELS = {
     CEREMONY: {"mont_mul_fp", "mont_mul_fr", "inv_batch_fp", "g1_madd", "gen_fold"},
@@ -356,15 +393,14 @@ PATH_KERNELS = {
             "fr_divide"},
     BATCHED: {"mont_mul_fr", "ladder_msm"},
     REF: {"ladder_msm", "fr_evaluate", "fr_divide"},
-    SETUP_REF: {"mont_mul_fr", "mont_mul_fp", "inv_batch_fp", "g1_double", "g1_madd",
-                "g2_double", "g2_madd"},
+    SETUP_REF: {"mont_mul_fr", "mont_mul_fp", "inv_batch_fp", "g1_ladder", "g2_ladder"},
     SETUP: {"mont_mul_fr", "mont_mul_fp", "inv_batch_fp", "g1_madd", "gen_fold", "g2_madd"},
-    LOAD: {"mont_mul_fp", "g1_double", "g1_add", "g2_double", "g2_add"},
-    DECOMPRESS: {"mont_mul_fp", "g1_double", "g1_add"},
-    VERIFY: {"mont_mul_fp", "inv_batch_fp", "g1_double", "g1_madd", "g1_add", "g2_double",
-             "g2_madd", "g2_add", "miller_loop", "final_exp"},
-    VERIFY_BATCH: {"mont_mul_fp", "inv_batch_fp", "g1_double", "g1_madd", "g1_add",
-                   "g2_double", "g2_madd", "g2_add", "miller_loop", "final_exp"},
+    LOAD: {"mont_mul_fp", "g1_ladder", "g2_ladder"},
+    DECOMPRESS: {"mont_mul_fp", "g1_ladder"},
+    VERIFY: {"mont_mul_fp", "inv_batch_fp", "g1_ladder", "g2_ladder", "g1_add", "g2_add",
+             "miller_loop", "final_exp"},
+    VERIFY_BATCH: {"mont_mul_fp", "inv_batch_fp", "g1_ladder", "g2_ladder", "g1_add", "g2_add",
+                   "miller_loop", "final_exp"},
 }
 
 
@@ -722,6 +758,37 @@ def ladder_chain(k, mask=None) -> dict:
             "adds": msm.LADDER_LANES.bit_length() - 1 + (blocks - 1).bit_length()}
 
 
+def mul_cost(scalars, n: int, masked: bool, g2: bool):
+    """(bytes, operations) of one ladder call (g1_ladder, g2_ladder) of n
+    lanes whose live lanes hold ``scalars`` (python ints): the affine base
+    and the scalar words (and the mask) read once, the Jacobian output
+    written; and the point operations [k] P needs on each lane with k != 0,
+    whatever route a kernel takes: bitlen(k) - 1 doublings, and the fewer
+    mixed adds of the lane's own double-and-add (popcount(k) - 1) and of a
+    fixed 4-bit window (a 14-point table of 2P .. 15P, then one a non-zero
+    window below the top one)."""
+    coord = FP2_BYTES if g2 else FP_BYTES
+    dbl, madd = (G2_DBL_OPS, G2_MADD_OPS) if g2 else (G1_DBL_OPS, G1_MADD_OPS)
+    ops = 0
+    for v, count in collections.Counter(scalars).items():
+        if v:
+            windows = [(v >> (4 * j)) & 15 for j in range((v.bit_length() + 3) // 4 - 1)]
+            adds = min(bin(v).count("1") - 1, 14 + sum(1 for w in windows if w))
+            ops += count * ((v.bit_length() - 1) * dbl + adds * madd)
+    return n * (2 * coord + 32 + masked) + 3 * coord * n, ops
+
+
+def mul_chain(scalars) -> dict:
+    """The ladder kernels' dependent point operations on these live scalars,
+    as one thread runs them: a doubling a step from the highest set bit of
+    any lane down, and a madd a step where some lane has the bit set (the
+    exceptional doublings aside)."""
+    union = 0
+    for v in set(scalars):
+        union |= v
+    return {"doubles": union.bit_length(), "madds": bin(union).count("1")}
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version, exceptional cases
 # ---------------------------------------------------------------------------
@@ -957,6 +1024,10 @@ def logging_calls():
         (cv, "g2_double", lambda p: ("g2_double", tuple(p[0].shape))),
         (cv, "g2_add", lambda p, q: ("g2_add", tuple(p[0].shape))),
         (cv, "g2_madd", lambda p, q: ("g2_madd", tuple(p[0].shape))),
+        (cv, "g1_ladder", lambda p, k, inf=None: (
+            "g1_ladder", tuple(p[0].shape), k if isinstance(k, int) else None, inf is not None)),
+        (cv, "g2_ladder", lambda p, k, inf=None: (
+            "g2_ladder", tuple(p[0].shape), k if isinstance(k, int) else None, inf is not None)),
         (pr, "miller_loop", lambda p, q: ("miller_loop", tuple(p[0].shape))),
         (pr, "final_exponentiation", lambda f: ("final_exp", tuple(f.shape))),
     ]
@@ -1012,14 +1083,18 @@ def check_commit_launches(label, launches):
                                  f"(expected {lo} to {hi})")
 
 
+def check_launches(label, launches, table):
+    """The path launched each kernel of ``table`` as often as it says."""
+    for name, count in table.items():
+        if launches.get(name, 0) != count:
+            raise AssertionError(f"{label}: {launches.get(name, 0)} {name} launches "
+                                 f"(expected {count})")
+
+
 def check_batched_launches(label, launches, msms: int):
     """A path with ``msms`` batched MSMs launched K2b once for each and K2's
     double, madd and add never."""
-    for name, per_msm in BATCHED_LAUNCHES.items():
-        got = launches.get(name, 0)
-        if got != per_msm * msms:
-            raise AssertionError(f"{label}: {got} {name} launches on its {msms} batched MSMs "
-                                 f"(expected {per_msm * msms})")
+    check_launches(label, launches, {k: v * msms for k, v in BATCHED_LAUNCHES.items()})
 
 
 def phase_paths(ctx):
@@ -1308,11 +1383,7 @@ def phase_setup(ctx, gx, gy):
         return generate_setup(secret, REF_N, device=ctx.device)
 
     t_ref, ref = run(SETUP_REF, ref_setup)
-    ref_launches = paths[SETUP_REF][0]
-    for name, count in SETUP_REF_LAUNCHES.items():
-        if ref_launches.get(name, 0) != count:
-            raise AssertionError(f"{SETUP_REF}: {ref_launches.get(name, 0)} {name} launches "
-                                 f"(expected {count})")
+    check_launches(SETUP_REF, paths[SETUP_REF][0], SETUP_REF_LAUNCHES)
     t_gen, items = ctx.time_once(lambda: SetupArtifactsGenerator(SETUP_SECRET, device=ctx.device)
                                  .take(REF_N))
     for label, got in (("generate_setup", ref), ("SetupArtifactsGenerator", items)):
@@ -1370,6 +1441,7 @@ def phase_setup(ctx, gx, gy):
     with open(path) as f:
         text = f.read()
     t_load, loaded = run(LOAD, lambda: art.load_setup(path, device=ctx.device))
+    check_launches(LOAD, paths[LOAD][0], LOAD_LAUNCHES)
     if art.dumps([a.to_json() for a in loaded]) != text:
         raise AssertionError(f"{LOAD}: the loaded setup re-serializes to other bytes")
     raw = json.loads(text)
@@ -1417,6 +1489,7 @@ def phase_setup(ctx, gx, gy):
             (gx[:, spot], gy[:, spot], FP.one_like(gx[:, spot])))]:
         raise AssertionError("the vectorized compression differs from hostmath's")
     t_dec, jac = run(DECOMPRESS, lambda: codec.g1_decompress_batch(blobs, True, ctx.device))
+    check_launches(DECOMPRESS, paths[DECOMPRESS][0], DECOMPRESS_LAUNCHES)
     if not same(ctx, jac, (gx, gy, FP.one_like(gx))):
         raise AssertionError(f"{DECOMPRESS}: differs from the ceremony's words")
     out.update(load_ms=t_load, decompress_ms=t_dec, compress_ms=t_cmp,
@@ -1465,10 +1538,7 @@ def phase_verify(ctx, srs, secret, opening, ref_opening):
         paths[VERIFY] = (launches, calls)
         if ok is not True:
             raise AssertionError(f"{VERIFY}: the proof does not verify")
-        for name, count in VERIFY_LAUNCHES.items():
-            if launches.get(name, 0) != count:
-                raise AssertionError(f"{VERIFY}: {launches.get(name, 0)} {name} launches "
-                                     f"(expected {count})")
+        check_launches(VERIFY, launches, VERIFY_LAUNCHES)
         runs = []
         for _ in range(3):
             ms, ok = ctx.time_once(verify)
@@ -1519,6 +1589,7 @@ def phase_verify(ctx, srs, secret, opening, ref_opening):
             if v == VERIFY_SIZES[-1]:
                 t_b, got, launches, calls = drive(ctx, VERIFY_BATCH, batch)
                 paths[VERIFY_BATCH] = (launches, calls)
+                check_launches(VERIFY_BATCH, launches, VERIFY_LAUNCHES)
             else:
                 t_b, got = ctx.time_once(batch)
             warm = []
@@ -1877,6 +1948,130 @@ def phase_replay(ctx, label, launches, calls, done):
     return totals
 
 
+def check_ladders(ctx, group, calls):
+    """calls: (label, (x, y), k, inf, out), out a ladder kernel's output on
+    those inputs. One ladder_plain over the checked lanes of every call side
+    by side (all lanes up to 2 MUL_PLAIN_LANES, the first and last
+    MUL_PLAIN_LANES of a wider call: the lanes are independent), each call
+    held to its slice, bit-identical. The plain version's cost is its steps,
+    not its lanes (tens of seconds a call on the card), hence one call.
+    Returns (its ms, {label: max word error})."""
+    torch = ctx.torch
+    from kzg_torch.ops import curve as cv
+
+    parts, cuts, lo = [], [], 0
+    for label, (x, y), k, inf, out in calls:
+        n = x.shape[-1]
+        idx = torch.arange(n, device=ctx.device)
+        if n > 2 * MUL_PLAIN_LANES:
+            idx = torch.cat([idx[:MUL_PLAIN_LANES], idx[-MUL_PLAIN_LANES:]])
+        flags = inf[idx] if inf is not None else torch.zeros_like(idx, dtype=torch.bool)
+        if isinstance(k, int):
+            k = cv.scalar_on_lanes(k, n, ctx.device)
+        parts.append((x[..., idx], y[..., idx], k[:, idx], flags))
+        cuts.append((label, lo, idx, out))
+        lo += idx.numel()
+    base, k, inf = ((torch.cat([p[0] for p in parts], -1), torch.cat([p[1] for p in parts], -1)),
+                    torch.cat([p[2] for p in parts], -1), torch.cat([p[3] for p in parts]))
+    plain_ms, want = ctx.time_once(lambda: cv.ladder_plain(base, k, inf, group))
+    print(f"  {group.name}'s plain ladder over {lo} lanes: {plain_ms:.1f} ms", flush=True)
+    errs = {}
+    for label, start, idx, out in cuts:
+        errs[label] = check(ctx, label, tuple(c[..., idx] for c in out),
+                            tuple(c[..., start : start + idx.numel()] for c in want))
+    return plain_ms, errs
+
+
+def ladder_case(ctx, spec):
+    """Seeded inputs at a logged ladder call's shape: canonical words for the
+    affine base, the call's public scalar on every lane or seeded scalars
+    below r, every 61st lane flagged where the call had a mask. Returns
+    (base, k, inf, the live lanes' scalars as ints)."""
+    torch = ctx.torch
+    from kzg_torch.ops import limbs as lb
+    from kzg_torch.ops.field import FP, FR
+
+    _, shape, public, masked = spec
+    n = shape[-1]
+    x, y = (ctx.rand_field(FP, math.prod(shape[1:])).view(shape) for _ in range(2))
+    inf = torch.arange(n, device=ctx.device) % 61 == 5 if masked else None
+    if public is not None:
+        return (x, y), public, inf, [public] * (n - (int(inf.sum()) if masked else 0))
+    k = ctx.rand_field(FR, n)
+    return (x, y), k, inf, lb.words_to_ints(k if inf is None else k[:, ~inf])
+
+
+def mul_edge_calls(ctx, group) -> list:
+    """The group's ladder kernel on the case table of
+    kzg_torch/utils/mul_cases.py at n = 1, 9, 127, 128, 129 and 2^16:
+    mul_scalar_affine on affine_case (k = 0, 1, r - 1, 2^256 - 1, r (acc ==
+    -P at the last step) and r + 2 (acc == P: the exact madd doubles) on
+    lanes 0-5, r + 2 on three lanes of warp 1; seeded words and scalars
+    elsewhere) and mul_scalar(p, r) on public_case (a subgroup point,
+    infinity, a point outside the subgroup, a second subgroup point; Z one
+    elsewhere), the case lanes against the host oracles. Returns the calls
+    for check_ladders."""
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.utils import mul_cases
+
+    calls = []
+    for n in MUL_CHECK_SIZES:
+        (x, y), k, base = mul_cases.affine_case(group, n, SEED + n, ctx.device)
+        out = cv.mul_scalar_affine((x, y), k, group=group)
+        lanes = sorted(base)
+        want = mul_cases.affine_oracle(group, base)
+        if group.host_affine(*group.to_affine(tuple(c[..., lanes] for c in out))) != [
+                want[lane] for lane in lanes]:
+            raise AssertionError(f"{group.name} ladder (n={n}): a case lane differs from the "
+                                 f"host oracle")
+        calls.append((f"{group.name} ladder, a scalar a lane (n={n}, the case table)", (x, y),
+                      k, None, out))
+        p, pts = mul_cases.public_case(group, n, SEED + n + 1, ctx.device)
+        out = cv.mul_scalar(p, mul_cases.PUBLIC, group=group)
+        got = group.host_affine(*group.to_affine(tuple(c[..., : len(pts)] for c in out)))
+        if got != mul_cases.public_oracle(group, pts):
+            raise AssertionError(f"{group.name} [r] P (n={n}): a case lane differs from the "
+                                 f"host oracle")
+        calls.append((f"{group.name} [r] P (n={n}, the case table)", (p[0], p[1]),
+                      mul_cases.PUBLIC, group.is_inf(p), out))
+    return calls
+
+
+def phase_ladders(ctx, paths, done):
+    """The ladder kernels (g1_ladder, g2_ladder), a group at a time: every
+    distinct call the paths logged, replayed at its shape on ladder_case's
+    inputs, launched once (its launches a call), timed by CUDA events,
+    bounded by mul_cost, its chain counted by mul_chain; then the case table
+    (mul_edge_calls). Every one of those calls is held to one plain ladder
+    over their checked lanes side by side (check_ladders); a replayed
+    call's plain_ms is that plain call's. Fills ``done`` as replay_one
+    does."""
+    from kzg_torch.ops import _build
+    from kzg_torch.ops import curve as cv
+
+    specs = sorted({spec for _, calls in paths.values() for spec in calls
+                    if spec[0] in ("g1_ladder", "g2_ladder")}, key=str)
+    for name, group in (("g1_ladder", cv.G1), ("g2_ladder", cv.G2)):
+        rows, calls = {}, []
+        for spec in (sp for sp in specs if sp[0] == name):
+            base, k, inf, ints = ladder_case(ctx, spec)
+            before = _build.LAUNCHES[name]
+            out = group.ladder(base, k, inf)
+            per_call = _build.LAUNCHES[name] - before
+            ms = ctx.time_cuda(lambda: group.ladder(base, k, inf))
+            ctx.ladder_chains[spec] = mul_chain(ints)
+            rows[spec] = (per_call, ms, *mul_cost(ints, spec[1][-1], inf is not None,
+                                                  name == "g2_ladder"))
+            label = (f"{name} {spec[1]}, "
+                     f"{'a scalar a lane' if spec[2] is None else 'one scalar'}"
+                     f"{', masked' if spec[3] else ''}")
+            calls.append((label, base, k, inf, out))
+            print(f"  {label}: {ms:.4f} ms kernel, chain {ctx.ladder_chains[spec]}", flush=True)
+        plain_ms, errs = check_ladders(ctx, group, calls + mul_edge_calls(ctx, group))
+        for (spec, (per_call, ms, n_bytes, n_ops)), call in zip(rows.items(), calls):
+            done[spec] = (per_call, ms, plain_ms, errs[call[0]], n_bytes, n_ops)
+
+
 def phase_stream_scan(ctx, calls):
     """The streaming scan (K3's every-prefix entry, the function of K3a-d and
     K6) runs on no path: checked in both modes against its plain version at
@@ -1914,6 +2109,8 @@ def phase_off_path(ctx):
     tests and a bench): each is checked against its plain version and timed
     at fixed shapes, K8 at the ceremony's fold shape, K7 at the bench's
     (128 lanes, 5 steps) and at 2^16 lanes and 16 steps, the one reported.
+    K9's doubling has had none since the ladder kernels: it is checked and
+    timed at 2^16 lanes, the G2 subgroup check's shape before them.
     Then the field multiply's two probes, at shapes any checkout's table
     build has run, so that two checkouts' runs compare the header: K1 at
     2^24 Fp lanes and K2's doubling at 2^20 lanes (reported beside, not in,
@@ -1927,6 +2124,7 @@ def phase_off_path(ctx):
     for spec in (("fold_entries", (32, FP.L, SRS_CHUNK)), ("inv_batch_fr", (FR.L, 1 << LOG_N)),
                  ("dbl_chain", (FP.L, 128), 5),
                  ("dbl_chain", (FP.L, CHECK_LANES), DBL_STEPS),
+                 ("g2_double", (FP.L, 2, 1 << LOG_SETUP)),
                  ("mont_mul_fp", (FP.L, 1 << 24)), ("g1_double", (FP.L, 1 << LOG_N)),
                  ("g2_madd", (FP.L, 2, 1 << LOG_SETUP))):
         kern, plain, n_bytes, n_ops = replay_case(ctx, spec)
@@ -2141,6 +2339,9 @@ def main() -> int:
     print("== paths", flush=True)
     paths, times, commit = phase_paths(ctx)
     per_path, done = {}, {}
+    print("== the ladder kernels: every path's calls replayed, then mul_cases.py's cases",
+          flush=True)
+    phase_ladders(ctx, paths, done)
     for label, (launches, calls) in paths.items():
         print(f"== replay: {label}", flush=True)
         per_path[label] = phase_replay(ctx, label, launches, calls, done)
@@ -2207,6 +2408,22 @@ def main() -> int:
             print(f"  {name}: {t['ms']:.4f} ms over a chain of {chain['fp12_ops']} dependent "
                   f"Fp12 operations, {t['ms'] / chain['fp12_ops'] * 1e3:.1f} us each; at "
                   f"{VERIFY_BATCH}: {batch['ms']:.4f} ms", flush=True)
+        if name in ("g1_ladder", "g2_ladder"):
+            # every path's call: a few lanes run one thread's chain, 2^20 fill the card
+            kernels[-1]["by_path"] = {}
+            for lb in paths:
+                spec = next((sp for sp in paths[lb][1] if sp[0] == name), None)
+                if spec is None:
+                    continue
+                row, chain = per_path[lb][name], ctx.ladder_chains[spec]
+                ops = sum(chain.values())
+                kernels[-1]["by_path"][lb] = dict(
+                    {f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "launches")},
+                    lanes=spec[1][-1], chain=chain, us_per_op=row["ms"] / max(ops, 1) * 1e3)
+                print(f"  {name} at {lb}: {row['ms']:.4f} ms at {spec[1][-1]} lanes, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%}), chain "
+                      f"{chain}, {row['ms'] / max(ops, 1) * 1e3:.2f} us a point operation",
+                      flush=True)
         if name == "ladder_msm":
             spec = next(spec for spec in paths[label][1] if spec[0] == name)
             ladder_chain_run = ctx.ladder_chains[spec]

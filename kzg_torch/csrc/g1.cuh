@@ -2,8 +2,8 @@
 // over Fp2 (G2): device functions shared by the point kernels (g1_point.cu,
 // g2_point.cu), the bucket scan (scan_madd.cu), the point prefix scan
 // (hs_scan.cu), the bucket reduction (bucket_reduce.cu), the batched-affine
-// MSM (ladder_msm.cu), the window fold (gen_fold.cu) and the doubling chain
-// (dbl_chain.cu).
+// MSM (ladder_msm.cu), the scalar multiplications (mul_ladder.cu), the window
+// fold (gen_fold.cu) and the doubling chain (dbl_chain.cu).
 //
 // The formulas are term for term those of kzg_tpu/ops/curve.py
 // (JacobianCurve.double / add / madd) and kzg_tpu/ops/pallas_curve.py
@@ -229,6 +229,35 @@ __device__ __forceinline__ P jac_madd_fast(const P& p, const El& x2, const El& y
   out = pt_sel<Ops>(z1_inf, q, out);
   needs_double = same_x && same_y && !z1_inf;
   return out;
+}
+
+// One step of the MSB-first double-and-add ladder with mixed adds, on one
+// lane's values in shared memory (the batched MSM, ladder_msm.cu, and the
+// scalar multiplications, mul_ladder.cu): acc = 2 acc, then acc + (px, py)
+// kept where bit b of the lane's scalar word is set. The madd is the
+// 11-multiply one; a lane at acc == P needs the doubling instead, and its
+// warp computes that only when one of its lanes needs it, so the step's
+// output is the exact madd's. With kSkipClear a warp none of whose lanes
+// has the bit set skips the madd, which every lane of it would drop. Every
+// thread of the warp must reach the step. The empty asm statements keep the
+// values in shared memory across the out-of-line multiplies, not in
+// registers.
+template <class Ops, bool kSkipClear, class P, class El>
+__device__ __forceinline__ void ladder_step(P& acc, P& sum, const El& px, const El& py,
+                                            const u32& word, int b) {
+  acc = jac_double<Ops>(acc);
+  asm volatile("" ::: "memory");
+  if (kSkipClear && !__any_sync(0xffffffffu, (word >> (b & 31)) & 1u)) return;
+  bool need;
+  sum = jac_madd_fast<Ops>(acc, px, py, need);
+  asm volatile("" ::: "memory");
+  if (__any_sync(0xffffffffu, need)) {
+    const P d = jac_double<Ops>(acc);
+    if (need) sum = d;
+    asm volatile("" ::: "memory");
+  }
+  if ((word >> (b & 31)) & 1u) acc = sum;
+  asm volatile("" ::: "memory");
 }
 
 __device__ __forceinline__ jac_t load_jac(const u32* x, const u32* y, const u32* z,

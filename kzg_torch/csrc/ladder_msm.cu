@@ -12,9 +12,10 @@
 //
 //   One thread a lane, kLadderThreads lanes a block. Each thread puts its
 //   affine P_i and its standard-form scalar words in shared memory and runs
-//   the ladder in mul_scalar_affine's order: acc = 2 acc, then acc + P_i
-//   where bit b of k_i is set, b from the top down. Every lane computes
-//   every step's madd and keeps it by a select: no branch on the bit. The
+//   the ladder in mul_scalar_affine's order (g1.cuh ladder_step, the step
+//   the scalar multiplications of mul_ladder.cu share): acc = 2 acc, then
+//   acc + P_i where bit b of k_i is set, b from the top down. Every lane
+//   computes every step's madd and keeps it by a select: no branch on the bit. The
 //   madd is the 11-multiply one (jac_madd_fast); a lane with acc == P_i needs
 //   the doubling instead, and its warp computes that only when one of its
 //   lanes needs it (a warp-uniform branch). So each step's output is the
@@ -90,20 +91,8 @@ __global__ void __launch_bounds__(kLadderThreads) ladder_msm_kernel(
 
   const int first = top;
 #pragma unroll 1
-  for (int b = first; b >= 0; b--) {
-    s.acc[t] = jac_double<LadderOps>(s.acc[t]);
-    asm volatile("" ::: "memory");
-    bool need;
-    s.sum[t] = jac_madd_fast<LadderOps>(s.acc[t], s.px[t], s.py[t], need);
-    asm volatile("" ::: "memory");
-    if (__any_sync(0xffffffffu, need)) {
-      const jac_t d = jac_double<LadderOps>(s.acc[t]);
-      if (need) s.sum[t] = d;
-      asm volatile("" ::: "memory");
-    }
-    if ((s.k[b >> 5][t] >> (b & 31)) & 1u) s.acc[t] = s.sum[t];
-    asm volatile("" ::: "memory");
-  }
+  for (int b = first; b >= 0; b--)
+    ladder_step<LadderOps, false>(s.acc[t], s.sum[t], s.px[t], s.py[t], s.k[b >> 5][t], b);
 
   // the block's tree: at distance h, thread q adds lane 2 h q + h into 2 h q
 #pragma unroll 1

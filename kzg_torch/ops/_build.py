@@ -63,6 +63,8 @@ SIGNATURES = {
     "kzg_g2_double": [_P] * 6 + [_I, _P],
     "kzg_g2_add": [_P] * 9 + [_I, _P],
     "kzg_g2_madd": [_P] * 8 + [_I, _P],
+    "kzg_g1_ladder": [_P] * 7 + [_I, _P],
+    "kzg_g2_ladder": [_P] * 7 + [_I, _P],
     "kzg_miller_loop": [_P] * 5 + [_I, _P],
     "kzg_final_exp": [_P] * 3 + [_I, _P],
 }

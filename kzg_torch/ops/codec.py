@@ -9,8 +9,9 @@ roots run on the device as constant exponentiations, their products on K1:
 G1's y = (x^3 + 4)^((p + 1) / 4), G2's by the p = 3 mod 4 method in Fp2
 (two exponentiations, ``:183-214``). The sign follows the lexicographic
 convention (G2: c1 first, c0 where c1 = 0). With ``subgroup_check`` every
-point is held to [r] P == infinity by ``curve.mul_scalar``: K2 for G1, K9
-for G2 (254 doublings and 133 adds: r has 255 bits, 134 of them set).
+point is held to [r] P == infinity by ``curve.mul_scalar``: one launch of the
+group's ladder kernel (254 doublings and 133 mixed adds a lane: r has 255
+bits, 134 of them set).
 """
 
 from __future__ import annotations

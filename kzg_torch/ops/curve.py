@@ -9,6 +9,9 @@ where lanes may be infinite.
 G1's three formulas (double, add, madd) are kernel K2 (``csrc/g1_point.cu``,
 device functions in ``csrc/g1.cuh``) on CUDA tensors and their plain versions
 on CPU tensors; G2's are kernel K9 (``csrc/g2_point.cu``, ``csrc/g2.cuh``).
+A scalar multiplication of either group is one launch of its ladder kernel
+(``g1_ladder`` / ``g2_ladder``, ``csrc/mul_ladder.cu``), whose plain version
+is the step-by-step ladder on the plain formulas.
 The plain versions follow ``kzg_tpu/ops/curve.py:82-170`` term for term,
 exceptional lanes included, so kernel, plain version and the JAX package
 agree bit for bit: G1's on 16-bit limbs in int64, G2's on ``fp2``'s
@@ -593,6 +596,7 @@ class Group:
     double: Callable  # the kernels: K2 for G1, K9 for G2
     add: Callable
     madd: Callable
+    ladder: Callable  # a scalar multiplication in one launch (g1_ladder, g2_ladder)
     is_inf: Callable
     to_affine: Callable
     words: Callable  # (host ints, device) -> Montgomery words
@@ -612,51 +616,142 @@ class Group:
 # The kernels are looked up when called, so that a module function swapped
 # for a wrapper (chip_smoke.py's call log) is the one that runs.
 G1 = Group("G1", (FP.L,), lambda p: g1_double(p), lambda p, q: g1_add(p, q),
-           lambda p, q: g1_madd(p, q), is_inf, to_affine, FP.tensor, FP.from_words_many,
-           FP.one_like, g1_gen_affine, hm.G1_GEN, hm.g1_add)
+           lambda p, q: g1_madd(p, q), lambda p, k, inf=None: g1_ladder(p, k, inf), is_inf,
+           to_affine, FP.tensor, FP.from_words_many, FP.one_like, g1_gen_affine, hm.G1_GEN,
+           hm.g1_add)
 G2 = Group("G2", (FP.L, 2), lambda p: g2_double(p), lambda p, q: g2_add(p, q),
-           lambda p, q: g2_madd(p, q), g2_is_inf, g2_to_affine, fp2.tensor, fp2.to_ints,
-           fp2.one, g2_gen_affine, hm.G2_GEN, hm.g2_add)
+           lambda p, q: g2_madd(p, q), lambda p, k, inf=None: g2_ladder(p, k, inf), g2_is_inf,
+           g2_to_affine, fp2.tensor, fp2.to_ints, fp2.one, g2_gen_affine, hm.G2_GEN, hm.g2_add)
 
 
-def mul_scalar(p, k, nbits: int = 256, group=G1):
-    """[k] p for Jacobian base points: MSB-first double-and-add
-    (curve.py:205-226) on the group's kernels. k is either (8, *batch)
-    standard-form Fr words, a scalar a lane (every step adds, a select
-    keeps it where the bit is set), or a python int, one scalar for every
-    lane: then its steps above the top set bit are skipped (there the
-    JAX package's acc is the zero words of infinity, whose doubling gives
-    the same words, and its first add gives p, or zeros where p is
-    infinite) and only its set bits add. The same words either way."""
-    double, add, inf = group.double, group.add, group.is_inf
+# ---------------------------------------------------------------------------
+# K2 and K9 as the scalar multiplications use them: one ladder launch a call
+# ---------------------------------------------------------------------------
+
+
+def _top_bit(k: torch.Tensor) -> int:
+    """The highest set bit of any lane of (8, n) scalar words, -1 if none."""
+    used = (k != 0).any(dim=1).nonzero()
+    if used.numel() == 0:
+        return -1
+    w = int(used[-1])
+    return 32 * w + int((k[w].to(torch.int64) & 0xFFFFFFFF).max()).bit_length() - 1
+
+
+def ladder_plain(p_affine, k: torch.Tensor, inf=None, group=G1):
+    """Plain version of the ladder kernels (any device), in their order: the
+    lanes flagged in ``inf`` take the scalar 0, then from the highest set bit
+    of any lane down, acc = 2 acc and acc + P where the bit is set (a select
+    keeps acc elsewhere; a step where no lane has the bit skips the madd), on
+    the group's plain formulas. Above that bit every acc is the zero words of
+    infinity, as in the JAX package's 256 steps (curve.py:228-245), so the
+    words are its."""
+    double, madd = ((g1_double_plain, g1_madd_plain) if group is G1
+                    else (g2_double_plain, g2_madd_plain))
+    if inf is not None:
+        k = torch.where(inf, 0, k)
+    x, y = p_affine
+    acc = inf_like((x, x, x))
+    for i in range(_top_bit(k), -1, -1):
+        acc = double(acc)
+        bit = scalar_bit(k, i)
+        if bool(bit.any()):
+            acc = select(bit, madd(acc, (x, y)), acc)
+    return acc
+
+
+def scalar_on_lanes(k: int, n: int, device) -> torch.Tensor:
+    """One scalar for n lanes: k mod 2^256 as (8, n) standard-form words (a
+    broadcast view)."""
+    words = lb.ints_to_words([k % (1 << 256)], FR.L)
+    return torch.from_numpy(words).to(device).expand(FR.L, n)
+
+
+def _ladder(counter, entry, group, p_affine, k, inf):
+    coord = group.coord
+    x, y = p_affine
+    n = x.shape[-1]
     if isinstance(k, int):
-        k &= (1 << nbits) - 1
-        if k == 0:
-            return inf_like(p)
-        acc = select(inf(p), inf_like(p), p)
-        for i in range(k.bit_length() - 2, -1, -1):
-            acc = double(acc)
-            if (k >> i) & 1:
-                acc = add(acc, p)
-        return acc
+        k = scalar_on_lanes(k, n, x.device)
+    if x.shape != coord + (n,) or y.shape != x.shape or tuple(k.shape) != (FR.L, n):
+        raise ValueError(f"the ladder takes {coord + ('n',)} coordinates and (8, n) scalars, "
+                         f"got {tuple(x.shape)}, {tuple(y.shape)} and {tuple(k.shape)}")
+    if inf is not None and tuple(inf.shape) != (n,):
+        raise ValueError(f"inf must have shape ({n},)")
+    if x.device.type == "cpu":
+        return ladder_plain(p_affine, k, inf, group)
+    x, y, k = x.contiguous(), y.contiguous(), k.contiguous()
+    _build.check_cuda(x, y, k)
+    if inf is not None and (inf.dtype != torch.bool or inf.device != x.device
+                            or not inf.is_contiguous()):
+        raise ValueError("inf must be a contiguous bool tensor on the operands' device")
+    out = tuple(torch.empty_like(x) for _ in range(3))
+    if n:
+        _build.launch(counter, entry, x.data_ptr(), y.data_ptr(), k.data_ptr(),
+                      None if inf is None else inf.data_ptr(), *(o.data_ptr() for o in out), n)
+    return out
+
+
+def g1_ladder(p_affine, k, inf=None):
+    """[k_i] P_i on every lane: p_affine (x, y) (12, n) affine Montgomery
+    words, k (8, n) standard-form scalar words or a python int (one scalar
+    for every lane, mod 2^256), inf an (n,) bool mask or None (a flagged
+    lane's product is infinity). Returns a Jacobian (12, n) triple. CPU
+    tensors take ``ladder_plain``; CUDA tensors launch ``kzg_g1_ladder``
+    (csrc/mul_ladder.cu, one launch counted as ``g1_ladder``), whose output
+    equals the plain version's word for word."""
+    return _ladder("g1_ladder", "kzg_g1_ladder", G1, p_affine, k, inf)
+
+
+def g2_ladder(p_affine, k, inf=None):
+    """G2's ladder, as g1_ladder on (12, 2, n) coordinates: ``kzg_g2_ladder``
+    on CUDA tensors, counted as ``g2_ladder``."""
+    return _ladder("g2_ladder", "kzg_g2_ladder", G2, p_affine, k, inf)
+
+
+def mul_scalar(p, k, group=G1):
+    """[k] p for Jacobian base points (curve.py:205-226). k is either a
+    python int, one scalar for every lane (the codec's [r] P), or (8, n)
+    standard-form Fr words, a scalar a lane.
+
+    With an int, p's finite lanes must have Z = 1 (points as the codec and
+    g1_to_device / g2_to_device make them) and the group's ladder runs it in
+    one launch, with mixed adds on (X, Y) and the lanes at infinity flagged.
+    The words are those of the JAX package's double-and-add over adds: with
+    Z2 = 1 the add's U1, S1 and Z1 Z2 are X1, Y1 and Z1, its exceptional
+    lanes the madd's, and the first set bit's madd onto infinity gives
+    (X, Y, 1) = p. With words, every step adds on the group's formula
+    kernels and a select keeps it where the bit is set (no path calls this
+    form)."""
+    if isinstance(k, int):
+        inf = group.is_inf(p)
+        z_one = (p[2] == group.one(p[2])).flatten(0, len(group.coord) - 1).all(dim=0)
+        if not bool((z_one | inf).all()):
+            raise ValueError("mul_scalar with an int scalar takes points with Z = 1 or at "
+                             "infinity")
+        return group.ladder((p[0], p[1]), k, inf)
+    double, add = group.double, group.add
     acc = inf_like(p)
-    for i in range(nbits - 1, -1, -1):
+    for i in range(255, -1, -1):
         acc = double(acc)
         acc = select(scalar_bit(k, i), add(acc, p), acc)
     return acc
 
 
-def mul_scalar_affine(p_affine, k: torch.Tensor, nbits: int = 256, double=None, madd=None,
-                      group=G1):
+def mul_scalar_affine(p_affine, k: torch.Tensor, double=None, madd=None, group=G1):
     """[k] p for affine base points: MSB-first double-and-add with mixed adds
-    (curve.py:228-245), on the group's kernels (K2 for G1, K9 for G2) unless
-    ``double`` and ``madd`` are given. p_affine (x, y) (12, n) or (12, 2, n)
-    words; k (8, n) standard-form Fr words. Lanes must not be infinite
-    (callers mask them)."""
+    (curve.py:228-245). p_affine (x, y) (12, n) or (12, 2, n) words; k (8, n)
+    standard-form Fr words. Lanes must not be infinite (callers mask them).
+    Without ``double`` and ``madd``: the group's ladder, one launch on CUDA
+    tensors (g1_ladder, g2_ladder). With them: the 256 steps on those
+    formulas, one call of each a step (msm.msm_batched_plain; on the card
+    K2's wrappers replay the route the ladder kernels replaced)."""
+    if double is None and madd is None:
+        return group.ladder(p_affine, k)
     double, madd = double or group.double, madd or group.madd
     x, y = p_affine
     acc = inf_like((x, x, x))
-    for i in range(nbits - 1, -1, -1):
+    for i in range(255, -1, -1):
         acc = double(acc)
         acc = select(scalar_bit(k, i), madd(acc, (x, y)), acc)
     return acc

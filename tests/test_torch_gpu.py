@@ -307,6 +307,67 @@ def test_g2_point_kernels_match_plain(cuda, n):
             assert lane >= m or aff[lane] == want, (op, g2_cases.CASES[lane])
 
 
+@pytest.mark.parametrize("mode", ["a scalar a lane", "[r] P"])
+@pytest.mark.parametrize("name", ["G1", "G2"])
+def test_mul_ladder_kernels_match_plain(cuda, name, mode):
+    """The ladder kernels (g1_ladder, g2_ladder) against their plain version
+    on the card, bit for bit, on the case table of mul_cases at n = 1, 9,
+    127, 128, 129 and 2^16: mul_scalar_affine on affine_case (k = 0, 1,
+    r - 1, 2^256 - 1, r, r + 2, and r + 2 on three lanes of warp 1) or
+    mul_scalar(p, r) on public_case (a subgroup point, infinity, a point
+    outside the subgroup); one launch a call; the plain version once over
+    every size's lanes side by side (its cost is its steps); the case lanes
+    against the host oracles."""
+    from kzg_torch.ops import _build
+    from kzg_torch.utils import mul_cases
+
+    group = {"G1": cv.G1, "G2": cv.G2}[name]
+    counter = f"{name.lower()}_ladder"
+    parts, outs = [], []
+    for n in (1, 9, 127, 128, 129, 1 << 16):
+        before = _build.LAUNCHES[counter]
+        if mode == "a scalar a lane":
+            (x, y), k, base = mul_cases.affine_case(group, n, 100 + n, cuda)
+            out = cv.mul_scalar_affine((x, y), k, group=group)
+            inf = torch.zeros(n, dtype=torch.bool, device=cuda)
+            lanes, want = sorted(base), mul_cases.affine_oracle(group, base)
+            want = [want[lane] for lane in lanes]
+        else:
+            p, pts = mul_cases.public_case(group, n, 100 + n, cuda)
+            out = cv.mul_scalar(p, mul_cases.PUBLIC, group=group)
+            (x, y), inf = p[:2], group.is_inf(p)
+            k = cv.scalar_on_lanes(mul_cases.PUBLIC, n, cuda)
+            lanes, want = list(range(len(pts))), mul_cases.public_oracle(group, pts)
+        assert _build.LAUNCHES[counter] == before + 1
+        assert group.host_affine(*group.to_affine(tuple(c[..., lanes] for c in out))) == want
+        parts.append((x, y, k, inf))
+        outs.append(out)
+    base = tuple(torch.cat([p[j] for p in parts], -1) for j in range(2))
+    k, inf = torch.cat([p[2] for p in parts], -1), torch.cat([p[3] for p in parts])
+    got = tuple(torch.cat([o[j] for o in outs], -1) for j in range(3))
+    assert _same(got, cv.ladder_plain(base, k, inf, group))
+
+
+def test_scalar_multiplications_launch_one_ladder_a_group(cuda, monkeypatch):
+    """Without generator tables, the generator multiplications of 9 lanes
+    and the subgroup check of a decompressed batch launch one ladder kernel
+    a group and none of K2's or K9's formulas."""
+    from kzg_torch.ops import _build, codec
+
+    monkeypatch.setattr(genmul, "_tables", {})
+    k = FR.tensor([3, 10, hm.R - 1] * 3, cuda, mont=False)
+    _build.reset_launches()
+    g1 = genmul.mul_g1_gen(k)
+    g2 = genmul.mul_g2_gen(k)
+    codec.g1_decompress_batch([hm.g1_compress(p) for p in cv.g1_from_device(g1)], True, cuda)
+    codec.g2_decompress_batch([hm.g2_compress(p) for p in cv.g2_from_device(g2)], True, cuda)
+    launches = dict(_build.LAUNCHES)
+    assert launches.get("g1_ladder") == launches.get("g2_ladder") == 2
+    assert not any(launches.get(f"{g}_{op}") for g in ("g1", "g2") for op in ("double", "madd",
+                                                                              "add"))
+    assert cv.g2_from_device(g2)[:3] == [hm.g2_mul(hm.G2_GEN, v) for v in (3, 10, hm.R - 1)]
+
+
 def test_g2_wrappers_refuse_mismatched_operands(cuda):
     p = tuple(torch.zeros(FP.L, 2, 4, dtype=torch.int32, device=cuda) for _ in range(3))
     with pytest.raises(ValueError):
@@ -317,7 +378,7 @@ def test_g2_wrappers_refuse_mismatched_operands(cuda):
 
 def test_setup_on_the_card_equals_golden(cuda, monkeypatch):
     """generate_setup of 10 points from the golden secret on the card (the
-    ladder of each group on K2 and K9 without tables, then with them) gives
+    ladder kernel of each group without tables, then the tables) gives
     tests/golden/setup.json's bytes."""
     import os
 
