@@ -60,27 +60,29 @@ Phases, in order; any failure exits non-zero and prints no result:
      K2 launch. The proof must equal the host oracle as the 2^20 one does.
    - setup, after those paths (phase_setup): (a) the reference CLI's
      trusted-setup, generate_setup of 10 points from tests/golden/setup.json's
-     secret with no generator tables (one launch of each group's ladder
-     kernel and none of K2's or K9's formulas: SETUP_REF_LAUNCHES), its bytes and
+     secret with no generator tables (one launch of each group's generator
+     ladder, Mode B, and none of K2's or K9's formulas: SETUP_REF_LAUNCHES),
+     its bytes and
      SetupArtifactsGenerator's first 10 items' those of the golden file and
      of hostmath; (b) generate_setup of 2^16 points (the tables built in
      the run): G1 equal to chunked_srs_g1's words and G2 by K9 to the plain
      route on the card (tables and fold on fp2's plain operations) on every
      lane, G2 to hostmath's s^k G2 on 64 lanes, the first and last among
      them; (c) save_setup, then load_setup through the two device batches
-     with the subgroup checks ([r] P, one ladder launch a group:
+     with the subgroup checks ([r] P, one Mode A ladder launch a group:
      LOAD_LAUNCHES): the same bytes back, an off-subgroup G2 point, an
      off-curve G1 point and x >= p
      rejected with kzg_tpu's messages, and DeviceSRS.load's words those of
      DeviceSRS.from_artifacts; (d) the 2^20 ceremony's points compressed,
-     then g1_decompress_batch with the subgroup check (one G1 ladder launch:
+     then g1_decompress_batch with the subgroup check (one G1 Mode A launch:
      DECOMPRESS_LAUNCHES): the ceremony's words.
    - verify, after the setup paths and with the generator tables set aside
      (a verifier's process has none; phase_verify): Evaluation.verify_proof
      of the main path's C and the proof path's pi, x and y against the 2^20
      SRS (s G2 from hostmath, set-up): True first and in 3 warm runs, False
      for a wrong y, pi + G1 and C + G1; K10 and K11 once, the x G2 and y G1
-     ladders one launch each and one add of each group, no other K2 or K9
+     generator ladders (Mode B) one launch each and one add of each group,
+     no other K2 or K9
      launch (VERIFY_LAUNCHES, verify_proofs_batch 64 too). Then the
      10-coefficient proof against a list of 10
      SetupArtifact, verify_proofs_batch at V = 1, 16 and 64 on openings of
@@ -93,15 +95,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    against plain version (bit-identical), then timed by CUDA events. A
    kernel's ms, plain_ms and bound are sums over the calls its path made.
    The ladder calls first (phase_ladders): each launched and timed, then
-   both groups' ladder kernels on the case table of
-   kzg_torch/utils/mul_cases.py at n = 1, 9, 127, 128, 129 and 2^16, one
-   scalar a lane (k = 0, 1, r - 1, 2^256 - 1, r, r + 2, and r + 2 on three
-   lanes of one warp) and [r] P (a subgroup point, infinity, a point
-   outside the subgroup), the case lanes against the host oracles; every
-   one of these calls held to the plain ladder on all its lanes up to 512
-   and on its first and last 256 beyond, the plain ladder run once a group
-   over all their checked lanes side by side (its plain_ms each replayed
-   call's).
+   both groups' ladder kernels in both modes on the case tables of
+   kzg_torch/utils/mul_cases.py at n = 1, 9, 127, 128, 129 and 2^16: Mode A
+   (the signed-digit ladder) one scalar a lane (k = 0, 1, r - 1,
+   2^256 - 1, r, r + 2, r - 2, SPLIT_DOUBLE, and r - 2 on three lanes of
+   one warp) and [r] P (a subgroup point, infinity, a point outside the
+   subgroup, G1's point of order 3, which meets acc == P, acc == -P and
+   infinity, or G2's off-subgroup point negated); Mode B (the generator's
+   scalar split into pieces, a thread a piece) on the same scalars, not
+   reduced, and seeded ones; the case lanes against the host oracles by
+   group element. Every
+   one of these calls is held to its mode's plain version on all its lanes
+   up to 512 and on its first and last 256 beyond, the plain version run
+   once a group and mode over all their checked lanes side by side (its
+   plain_ms each replayed call's).
    The kernels no path launches are checked and timed at fixed shapes: the
    streaming scan in both modes at the shape the fused scan ran on the main
    path (m steps over C chunks), the fold over pre-gathered entries (K8) at
@@ -149,7 +156,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 8. a line {"kernels": [...]} (the bucket reduction's and K2b's entries also
    give their critical paths, BUCKET_REDUCE_CHAIN and ladder_chain, and the
    ms per point operation on them; the ladder kernels' each path's call,
-   its chain (mul_chain) and us per point operation; K10's and K11's their chains of Fp12
+   its chain (mul_chain, gen_chain) and us per point operation; K10's and
+   K11's their chains of Fp12
    operations, PAIRING_CHAINS, and their numbers at the batch of 64), then
    the last line {"ok": true,
    "device": ...}.
@@ -202,15 +210,24 @@ buckets from the highest digit down, and c doublings and an add a window
 below the top one. At the batched path's 8192 random scalars the buckets
 win (about 0.095 ms, at c = 10); at a lane or two, the ladder. It reads 128
 bytes a lane (a mask byte more) and writes one point. A scalar
-multiplication (mul_cost; the ladder kernels) needs, on a live lane with
-k != 0, bitlen(k) - 1 doublings and the fewer mixed adds of the lane's own
-double-and-add (popcount(k) - 1) and of a fixed 4-bit window (a 14-point
-table, then an add a non-zero window below the top one): [r] P 254
-doublings and 66 madds, against the kernel's 255 and 134. It reads the
-affine base and 32 bytes of scalar a lane and writes a Jacobian point. A
-call of a few lanes runs one thread's chain (mul_chain: a doubling a step
-from the top set bit of any lane, a madd a step where some lane has the
-bit), which stands beside the bound. The pairing's
+multiplication on any base (mul_cost; Mode A of the ladder kernels) needs,
+on a live lane with k != 0, the cheapest of three ladders on k (not
+reduced: the base may lie outside the subgroup): binary (bitlen(k) - 1
+doublings, popcount(k) - 1 mixed adds), a fixed 4-bit window (bitlen(k) - 1
+doublings; a 14-point table, then an add a non-zero window below the top
+one) and the NAF (its top digit's index in doublings, weight - 1 mixed
+adds): [r] P 255 doublings and 59 madds (the NAF), the kernel's own count.
+It reads the affine base and 32 bytes of scalar a lane and writes a
+Jacobian point. A call of a few lanes runs one thread's chain (mul_chain:
+from the top non-zero NAF digit of any lane, a doubling a step below it and
+a madd a step where some lane has a non-zero digit), which stands beside
+the bound. The generator's (gen_cost; Mode B) needs, on a lane with k mod
+r != 0, the fewer operations of the ladder on k mod r and of the 4-bit
+pieces' own binary ladders on the 64 constant bases and an add for each
+non-zero piece after the first; it reads the bases once and 32 bytes a
+lane and writes a Jacobian point; its chain (gen_chain) is the pieces'
+steps, then log2(64) adds, one lane's, which stands beside the bound. The
+pairing's
 kernels are counted in the cheapest published forms of its Fp2 operations
 (MILLER_OPS, FEXP_OPS: a sparse line product, cyclotomic squares in the
 hard part): about 3.4 M IMADs a lane for the Miller loop and 5.5 M for the
@@ -315,9 +332,12 @@ KERNELS = {
     "g2_add": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:103"),
     "g2_madd": ("kzg_torch/csrc/g2_point.cu", "kzg_tpu/ops/curve.py:137"),
     # K2 and K9 as the scalar multiplications use them (kzg_tpu/ops/curve.py:205-245,
-    # mul_scalar and mul_scalar_affine): one launch a call, each group
+    # mul_scalar and mul_scalar_affine): one launch a call, each group; Mode A the
+    # signed-digit ladder on any base, Mode B the generator's scalar split into pieces
     "g1_ladder": ("kzg_torch/csrc/mul_ladder.cu", "kzg_tpu/ops/pallas_curve.py:260"),
     "g2_ladder": ("kzg_torch/csrc/mul_ladder.cu", "kzg_tpu/ops/pallas_curve.py:260"),
+    "g1_gen_ladder": ("kzg_torch/csrc/mul_ladder.cu", "kzg_tpu/ops/pallas_curve.py:260"),
+    "g2_gen_ladder": ("kzg_torch/csrc/mul_ladder.cu", "kzg_tpu/ops/pallas_curve.py:260"),
     # K10 and K11: the pairing, XLA around K1 in the JAX package
     "miller_loop": ("kzg_torch/csrc/pairing.cu", "kzg_tpu/ops/pairing.py:117"),
     "final_exp": ("kzg_torch/csrc/pairing.cu", "kzg_tpu/ops/pairing.py:210"),
@@ -341,6 +361,7 @@ DEVICE_FUNCTIONS = {
     "ladder_msm": ["ladder_msm_kernel"],
     "g2_double": ["g2_double_kernel"], "g2_add": ["g2_add_kernel"], "g2_madd": ["g2_madd_kernel"],
     "g1_ladder": ["g1_ladder_kernel"], "g2_ladder": ["g2_ladder_kernel"],
+    "g1_gen_ladder": ["g1_gen_ladder_kernel"], "g2_gen_ladder": ["g2_gen_ladder_kernel"],
     "miller_loop": ["miller_loop_kernel"], "final_exp": ["final_exp_kernel"],
 }
 SRS_CHUNK = 1 << 16  # the chunk bench.py passes to the JAX package's ceremony
@@ -361,11 +382,17 @@ SETUP_SPOT_LANES = 64  # lanes of the 2^16 setup's G2 held to hostmath
 # the point formulas' kernels the ladders replaced
 NO_FORMULAS = {"g1_double": 0, "g1_madd": 0, "g1_add": 0, "g2_double": 0, "g2_madd": 0,
                "g2_add": 0}
-# the reference-size setup (the generator multiplications of 9 lanes) and the
-# 2^16 setup's load (the subgroup check of each group's batch)
-SETUP_REF_LAUNCHES = LOAD_LAUNCHES = dict(NO_FORMULAS, g1_ladder=1, g2_ladder=1)
+MODE_A, MODE_B = ("g1_ladder", "g2_ladder"), ("g1_gen_ladder", "g2_gen_ladder")
+LADDERS = MODE_A + MODE_B
+R_CHAIN = {"doubles": 255, "madds": 59}  # Mode A's [r] P: r's NAF has 60 non-zero digits
+MAX_GEN_CHAIN = 40  # Mode B's point operations on one lane's chain, at most
+# the reference-size setup (the generator multiplications of 9 lanes: Mode B)
+SETUP_REF_LAUNCHES = dict(NO_FORMULAS, g1_ladder=0, g2_ladder=0, g1_gen_ladder=1,
+                          g2_gen_ladder=1)
+# the 2^16 setup's load (the subgroup check of each group's batch: Mode A)
+LOAD_LAUNCHES = dict(NO_FORMULAS, g1_ladder=1, g2_ladder=1, g1_gen_ladder=0, g2_gen_ladder=0)
 # the 2^20 decompression: the G1 subgroup check
-DECOMPRESS_LAUNCHES = dict(NO_FORMULAS, g1_ladder=1)
+DECOMPRESS_LAUNCHES = dict(NO_FORMULAS, g1_ladder=1, g2_ladder=0, g1_gen_ladder=0)
 G2_CHECK_SIZES = (1, 127, 128, 129)  # K9's edge checks; the paths' shapes are replayed
 VERIFY = f"verify_proof 2^{LOG_N} (the main path's C, the proof path's pi, x and y)"
 VERIFY_SIZES = (1, 16, 64)  # verify_proofs_batch's V; the largest is a driven path
@@ -382,7 +409,7 @@ PAIRING_CHAINS = {
                   "fp12_ops": 1 + FEXP_SQRS + 2 + FEXP_MULS + 3},
 }
 # a verify of V items without generator tables: K10 and K11 once, the
-# ladders of x G2 and y G1, one add of each group
+# generator ladders of x G2 and y G1 (Mode B), one add of each group
 VERIFY_LAUNCHES = dict(SETUP_REF_LAUNCHES, miller_loop=1, final_exp=1, g1_add=1, g2_add=1)
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -393,14 +420,14 @@ PATH_KERNELS = {
             "fr_divide"},
     BATCHED: {"mont_mul_fr", "ladder_msm"},
     REF: {"ladder_msm", "fr_evaluate", "fr_divide"},
-    SETUP_REF: {"mont_mul_fr", "mont_mul_fp", "inv_batch_fp", "g1_ladder", "g2_ladder"},
+    SETUP_REF: {"mont_mul_fr", "mont_mul_fp", "inv_batch_fp", "g1_gen_ladder", "g2_gen_ladder"},
     SETUP: {"mont_mul_fr", "mont_mul_fp", "inv_batch_fp", "g1_madd", "gen_fold", "g2_madd"},
     LOAD: {"mont_mul_fp", "g1_ladder", "g2_ladder"},
     DECOMPRESS: {"mont_mul_fp", "g1_ladder"},
-    VERIFY: {"mont_mul_fp", "inv_batch_fp", "g1_ladder", "g2_ladder", "g1_add", "g2_add",
+    VERIFY: {"mont_mul_fp", "inv_batch_fp", "g1_gen_ladder", "g2_gen_ladder", "g1_add", "g2_add",
              "miller_loop", "final_exp"},
-    VERIFY_BATCH: {"mont_mul_fp", "inv_batch_fp", "g1_ladder", "g2_ladder", "g1_add", "g2_add",
-                   "miller_loop", "final_exp"},
+    VERIFY_BATCH: {"mont_mul_fp", "inv_batch_fp", "g1_gen_ladder", "g2_gen_ladder", "g1_add",
+                   "g2_add", "miller_loop", "final_exp"},
 }
 
 
@@ -758,35 +785,99 @@ def ladder_chain(k, mask=None) -> dict:
             "adds": msm.LADDER_LANES.bit_length() - 1 + (blocks - 1).bit_length()}
 
 
+def _ladder_ops(v: int, dbl: int, madd: int) -> int:
+    """IMADs of [v] P, v > 0, on an affine P by the cheapest of three
+    ladders: binary (bitlen(v) - 1 doublings, popcount - 1 madds), a fixed
+    4-bit window (bitlen(v) - 1 doublings; a 14-point table of 2P .. 15P,
+    then a madd a non-zero window below the top one) and the NAF (its top
+    digit's index in doublings, weight - 1 madds)."""
+    from kzg_torch.ops import curve as cv
+
+    windows = [(v >> (4 * j)) & 15 for j in range((v.bit_length() + 3) // 4 - 1)]
+    adds = min(bin(v).count("1") - 1, 14 + sum(1 for w in windows if w))
+    plus, minus = cv.naf_int(v)
+    naf = ((plus | minus).bit_length() - 1) * dbl + (bin(plus | minus).count("1") - 1) * madd
+    return min((v.bit_length() - 1) * dbl + adds * madd, naf)
+
+
 def mul_cost(scalars, n: int, masked: bool, g2: bool):
-    """(bytes, operations) of one ladder call (g1_ladder, g2_ladder) of n
-    lanes whose live lanes hold ``scalars`` (python ints): the affine base
-    and the scalar words (and the mask) read once, the Jacobian output
+    """(bytes, operations) of one Mode A ladder call (g1_ladder, g2_ladder)
+    of n lanes whose live lanes hold ``scalars`` (python ints): the affine
+    base and the scalar words (and the mask) read once, the Jacobian output
     written; and the point operations [k] P needs on each lane with k != 0,
-    whatever route a kernel takes: bitlen(k) - 1 doublings, and the fewer
-    mixed adds of the lane's own double-and-add (popcount(k) - 1) and of a
-    fixed 4-bit window (a 14-point table of 2P .. 15P, then one a non-zero
-    window below the top one)."""
+    whatever route a kernel takes: _ladder_ops, the cheapest of the binary,
+    4-bit window and NAF ladders (not reduced: P may lie outside the
+    subgroup)."""
     coord = FP2_BYTES if g2 else FP_BYTES
     dbl, madd = (G2_DBL_OPS, G2_MADD_OPS) if g2 else (G1_DBL_OPS, G1_MADD_OPS)
-    ops = 0
-    for v, count in collections.Counter(scalars).items():
-        if v:
-            windows = [(v >> (4 * j)) & 15 for j in range((v.bit_length() + 3) // 4 - 1)]
-            adds = min(bin(v).count("1") - 1, 14 + sum(1 for w in windows if w))
-            ops += count * ((v.bit_length() - 1) * dbl + adds * madd)
+    ops = sum(count * _ladder_ops(v, dbl, madd)
+              for v, count in collections.Counter(scalars).items() if v)
     return n * (2 * coord + 32 + masked) + 3 * coord * n, ops
 
 
 def mul_chain(scalars) -> dict:
-    """The ladder kernels' dependent point operations on these live scalars,
-    as one thread runs them: a doubling a step from the highest set bit of
-    any lane down, and a madd a step where some lane has the bit set (the
-    exceptional doublings aside)."""
+    """Mode A's dependent point operations on these live scalars, as one
+    thread runs them: from the highest non-zero NAF digit of any lane (a
+    copy of +-P), a doubling a step below it and a madd a step where some
+    lane has a non-zero digit (the exceptional doublings aside)."""
+    from kzg_torch.ops import curve as cv
+
     union = 0
     for v in set(scalars):
-        union |= v
-    return {"doubles": union.bit_length(), "madds": bin(union).count("1")}
+        plus, minus = cv.naf_int(v)
+        union |= plus | minus
+    return {"doubles": max(union.bit_length() - 1, 0),
+            "madds": max(bin(union).count("1") - 1, 0)}
+
+
+def _pieces(v: int) -> list:
+    from kzg_torch.ops import curve as cv
+
+    bits = cv.GEN_SPLIT_BITS
+    return [(v >> (bits * j)) & ((1 << bits) - 1) for j in range(cv.GEN_SPLIT_PIECES)]
+
+
+def gen_cost(scalars, n: int, g2: bool):
+    """(bytes, operations) of one Mode B call (g1_gen_ladder,
+    g2_gen_ladder) of n lanes holding ``scalars``: the constant bases
+    read once, a lane's scalar words read and its Jacobian output written;
+    and the point operations [k] G needs on each lane with k mod r != 0, the
+    fewer of two methods: the ladder on k mod r (_ladder_ops) and, on the
+    given bases, each non-zero piece's own binary ladder (bitlen - 1
+    doublings, popcount - 1 madds) and an add for each non-zero piece after
+    the first."""
+    from kzg_torch.ops import curve as cv
+    from kzg_torch.utils import hostmath as hm
+
+    coord = FP2_BYTES if g2 else FP_BYTES
+    dbl, madd, add = ((G2_DBL_OPS, G2_MADD_OPS, G2_ADD_OPS) if g2
+                      else (G1_DBL_OPS, G1_MADD_OPS, G1_ADD_OPS))
+    ops = 0
+    for v, count in collections.Counter(scalars).items():
+        if v % hm.R == 0:
+            continue
+        live = [d for d in _pieces(v) if d]
+        split = (sum((d.bit_length() - 1) * dbl + (bin(d).count("1") - 1) * madd for d in live)
+                 + (len(live) - 1) * add)
+        ops += count * min(split, _ladder_ops(v % hm.R, dbl, madd))
+    return cv.GEN_SPLIT_PIECES * 2 * coord + n * (32 + 3 * coord), ops
+
+
+def gen_chain(scalars) -> dict:
+    """Mode B's dependent point operations on these scalars, as a lane's
+    threads run them: from the highest bit of any piece (a copy of the
+    base), a doubling a step below it and a madd a step where some piece
+    has the bit, then the log2(GEN_SPLIT_PIECES) levels of the pieces'
+    tree."""
+    from kzg_torch.ops import curve as cv
+
+    union = 0
+    for v in set(scalars):
+        for d in _pieces(v):
+            union |= d
+    return {"doubles": max(union.bit_length() - 1, 0),
+            "madds": max(bin(union).count("1") - 1, 0),
+            "adds": cv.GEN_SPLIT_PIECES.bit_length() - 1}
 
 
 # ---------------------------------------------------------------------------
@@ -1028,6 +1119,8 @@ def logging_calls():
             "g1_ladder", tuple(p[0].shape), k if isinstance(k, int) else None, inf is not None)),
         (cv, "g2_ladder", lambda p, k, inf=None: (
             "g2_ladder", tuple(p[0].shape), k if isinstance(k, int) else None, inf is not None)),
+        (cv, "g1_gen_ladder", lambda k: ("g1_gen_ladder", tuple(k.shape))),
+        (cv, "g2_gen_ladder", lambda k: ("g2_gen_ladder", tuple(k.shape))),
         (pr, "miller_loop", lambda p, q: ("miller_loop", tuple(p[0].shape))),
         (pr, "final_exponentiation", lambda f: ("final_exp", tuple(f.shape))),
     ]
@@ -1338,7 +1431,7 @@ def phase_setup(ctx, gx, gy):
     """The setup paths, each driven with the counts set to 0:
     (a) the reference CLI's trusted-setup, generate_setup of 10 points from
     tests/golden/setup.json's secret, in a process without generator
-    tables (the 256-step ladder of each group, K2 and K9), against
+    tables (each group's generator ladder, Mode B, one launch), against
     hostmath's rendering and that file, SetupArtifactsGenerator's first 10
     items too; (b) generate_setup of 2^16 points from a seeded secret:
     G1 against chunked_srs_g1 on every lane, G2's K9 route against the
@@ -1948,33 +2041,50 @@ def phase_replay(ctx, label, launches, calls, done):
     return totals
 
 
-def check_ladders(ctx, group, calls):
-    """calls: (label, (x, y), k, inf, out), out a ladder kernel's output on
-    those inputs. One ladder_plain over the checked lanes of every call side
-    by side (all lanes up to 2 MUL_PLAIN_LANES, the first and last
-    MUL_PLAIN_LANES of a wider call: the lanes are independent), each call
-    held to its slice, bit-identical. The plain version's cost is its steps,
-    not its lanes (tens of seconds a call on the card), hence one call.
-    Returns (its ms, {label: max word error})."""
+def _checked_lanes(ctx, n: int):
+    """The lanes of an n-lane ladder call that its plain check covers: all up
+    to 2 MUL_PLAIN_LANES, else the first and last MUL_PLAIN_LANES (the lanes
+    are independent)."""
+    idx = ctx.torch.arange(n, device=ctx.device)
+    if n > 2 * MUL_PLAIN_LANES:
+        idx = ctx.torch.cat([idx[:MUL_PLAIN_LANES], idx[-MUL_PLAIN_LANES:]])
+    return idx
+
+
+def check_ladders(ctx, group, calls, mode_b: bool):
+    """calls: Mode A (label, (x, y), k, inf, out) or Mode B (label, k, out),
+    out a ladder kernel's output on those inputs. One plain call of the
+    mode (naf_ladder_plain, gen_ladder_plain) over the checked lanes of
+    every call side by side (_checked_lanes), each call held to its slice,
+    bit-identical. The plain version's cost is its steps, not its lanes
+    (tens of seconds a Mode A call on the card), hence one call. Returns
+    (its ms, {label: max word error})."""
     torch = ctx.torch
     from kzg_torch.ops import curve as cv
 
     parts, cuts, lo = [], [], 0
-    for label, (x, y), k, inf, out in calls:
-        n = x.shape[-1]
-        idx = torch.arange(n, device=ctx.device)
-        if n > 2 * MUL_PLAIN_LANES:
-            idx = torch.cat([idx[:MUL_PLAIN_LANES], idx[-MUL_PLAIN_LANES:]])
-        flags = inf[idx] if inf is not None else torch.zeros_like(idx, dtype=torch.bool)
-        if isinstance(k, int):
-            k = cv.scalar_on_lanes(k, n, ctx.device)
-        parts.append((x[..., idx], y[..., idx], k[:, idx], flags))
+    for label, *inputs, out in calls:
+        if mode_b:
+            (k,) = inputs
+            idx = _checked_lanes(ctx, k.shape[1])
+            parts.append((k[:, idx],))
+        else:
+            (x, y), k, inf = inputs
+            n = x.shape[-1]
+            idx = _checked_lanes(ctx, n)
+            flags = inf[idx] if inf is not None else torch.zeros_like(idx, dtype=torch.bool)
+            plus, minus = cv.naf_masks(k, n, ctx.device)
+            parts.append((x[..., idx], y[..., idx], plus[:, idx], minus[:, idx], flags))
         cuts.append((label, lo, idx, out))
         lo += idx.numel()
-    base, k, inf = ((torch.cat([p[0] for p in parts], -1), torch.cat([p[1] for p in parts], -1)),
-                    torch.cat([p[2] for p in parts], -1), torch.cat([p[3] for p in parts]))
-    plain_ms, want = ctx.time_once(lambda: cv.ladder_plain(base, k, inf, group))
-    print(f"  {group.name}'s plain ladder over {lo} lanes: {plain_ms:.1f} ms", flush=True)
+    cat = [torch.cat([p[j] for p in parts], -1) for j in range(len(parts[0]))]
+    if mode_b:
+        plain = lambda: cv.gen_ladder_plain(cat[0], group)  # noqa: E731
+    else:
+        plain = lambda: cv.naf_ladder_plain(cat[:2], *cat[2:], group=group)  # noqa: E731
+    plain_ms, want = ctx.time_once(plain)
+    print(f"  {group.name}'s plain {'generator ' if mode_b else ''}ladder over {lo} lanes: "
+          f"{plain_ms:.1f} ms", flush=True)
     errs = {}
     for label, start, idx, out in cuts:
         errs[label] = check(ctx, label, tuple(c[..., idx] for c in out),
@@ -1983,34 +2093,40 @@ def check_ladders(ctx, group, calls):
 
 
 def ladder_case(ctx, spec):
-    """Seeded inputs at a logged ladder call's shape: canonical words for the
-    affine base, the call's public scalar on every lane or seeded scalars
-    below r, every 61st lane flagged where the call had a mask. Returns
-    (base, k, inf, the live lanes' scalars as ints)."""
+    """Seeded inputs at a logged ladder call's shape. Mode A: canonical words
+    for the affine base, the call's public scalar on every lane or seeded
+    scalars below r, every 61st lane flagged where the call had a mask;
+    returns ((x, y), k, inf) and the live lanes' scalars as ints. Mode B:
+    seeded scalars below r; returns (k,) and the scalars."""
     torch = ctx.torch
     from kzg_torch.ops import limbs as lb
     from kzg_torch.ops.field import FP, FR
 
+    if spec[0] in MODE_B:
+        k = ctx.rand_field(FR, spec[1][1])
+        return (k,), lb.words_to_ints(k)
     _, shape, public, masked = spec
     n = shape[-1]
     x, y = (ctx.rand_field(FP, math.prod(shape[1:])).view(shape) for _ in range(2))
     inf = torch.arange(n, device=ctx.device) % 61 == 5 if masked else None
     if public is not None:
-        return (x, y), public, inf, [public] * (n - (int(inf.sum()) if masked else 0))
+        return ((x, y), public, inf), [public] * (n - (int(inf.sum()) if masked else 0))
     k = ctx.rand_field(FR, n)
-    return (x, y), k, inf, lb.words_to_ints(k if inf is None else k[:, ~inf])
+    return ((x, y), k, inf), lb.words_to_ints(k if inf is None else k[:, ~inf])
 
 
 def mul_edge_calls(ctx, group) -> list:
-    """The group's ladder kernel on the case table of
-    kzg_torch/utils/mul_cases.py at n = 1, 9, 127, 128, 129 and 2^16:
-    mul_scalar_affine on affine_case (k = 0, 1, r - 1, 2^256 - 1, r (acc ==
-    -P at the last step) and r + 2 (acc == P: the exact madd doubles) on
-    lanes 0-5, r + 2 on three lanes of warp 1; seeded words and scalars
-    elsewhere) and mul_scalar(p, r) on public_case (a subgroup point,
-    infinity, a point outside the subgroup, a second subgroup point; Z one
-    elsewhere), the case lanes against the host oracles. Returns the calls
-    for check_ladders."""
+    """The group's Mode A kernel on the case table of
+    kzg_torch/utils/mul_cases.py at MUL_CHECK_SIZES (n = 1, 9, 127, 128,
+    129 and 2^16): mul_scalar_affine on affine_case (k = 0, 1, r - 1,
+    2^256 - 1, r (acc == -P at the last step), r + 2, r - 2 (acc == -P and
+    digit -1: the exact madd doubles) and SPLIT_DOUBLE on lanes 0-7, r - 2
+    on three lanes of warp 1; seeded words and scalars elsewhere) and
+    mul_scalar(p, r) on public_case (a subgroup point, infinity, a point
+    outside the subgroup, a second subgroup point, and G1's point of order
+    3 (acc meets P, -P and infinity) or G2's off-subgroup point negated; Z
+    one elsewhere), the case lanes against the host oracles. Returns the
+    calls for check_ladders."""
     from kzg_torch.ops import curve as cv
     from kzg_torch.utils import mul_cases
 
@@ -2037,37 +2153,72 @@ def mul_edge_calls(ctx, group) -> list:
     return calls
 
 
+def gen_edge_calls(ctx, group) -> list:
+    """The group's Mode B kernel on mul_cases.gen_case at MUL_CHECK_SIZES:
+    the scalars 0, 1, r - 1, 2^256 - 1, r (the pieces' last level adds -Q
+    to Q), r + 2, r - 2 and SPLIT_DOUBLE (the last level doubles) on lanes
+    0-7, seeded 256-bit scalars elsewhere, not reduced; the case lanes
+    against [k mod r] G. Returns the calls for check_ladders."""
+    from kzg_torch.utils import mul_cases
+
+    calls = []
+    for n in MUL_CHECK_SIZES:
+        k = mul_cases.gen_case(n, SEED + n + 2, ctx.device)
+        out = group.gen_ladder(k)
+        lanes = range(min(n, len(mul_cases.SCALARS)))
+        got = group.host_affine(*group.to_affine(tuple(c[..., : len(lanes)] for c in out)))
+        if got != mul_cases.gen_oracle(group, k, lanes):
+            raise AssertionError(f"{group.name} [k] G (n={n}): a case lane differs from the "
+                                 f"host oracle")
+        calls.append((f"{group.name} [k] G (n={n}, the case table)", k, out))
+    return calls
+
+
 def phase_ladders(ctx, paths, done):
-    """The ladder kernels (g1_ladder, g2_ladder), a group at a time: every
-    distinct call the paths logged, replayed at its shape on ladder_case's
-    inputs, launched once (its launches a call), timed by CUDA events,
-    bounded by mul_cost, its chain counted by mul_chain; then the case table
-    (mul_edge_calls). Every one of those calls is held to one plain ladder
-    over their checked lanes side by side (check_ladders); a replayed
-    call's plain_ms is that plain call's. Fills ``done`` as replay_one
-    does."""
+    """The ladder kernels, a group and a mode at a time: every distinct call
+    the paths logged, replayed at its shape on ladder_case's inputs,
+    launched once (its launches a call), timed by CUDA events, bounded by
+    mul_cost (Mode A) or gen_cost (Mode B), its chain counted by mul_chain
+    or gen_chain; then the mode's case table (mul_edge_calls,
+    gen_edge_calls). Every one of those calls is held to one plain call of
+    the mode over their checked lanes side by side (check_ladders); a
+    replayed call's plain_ms is that plain call's. Fills ``done`` as
+    replay_one does."""
     from kzg_torch.ops import _build
     from kzg_torch.ops import curve as cv
+    from kzg_torch.utils import hostmath as hm
 
     specs = sorted({spec for _, calls in paths.values() for spec in calls
-                    if spec[0] in ("g1_ladder", "g2_ladder")}, key=str)
-    for name, group in (("g1_ladder", cv.G1), ("g2_ladder", cv.G2)):
+                    if spec[0] in LADDERS}, key=str)
+    for name, group in zip(LADDERS, (cv.G1, cv.G2, cv.G1, cv.G2)):
+        mode_b = name in MODE_B
+        launch = group.gen_ladder if mode_b else group.ladder
         rows, calls = {}, []
         for spec in (sp for sp in specs if sp[0] == name):
-            base, k, inf, ints = ladder_case(ctx, spec)
+            inputs, ints = ladder_case(ctx, spec)
             before = _build.LAUNCHES[name]
-            out = group.ladder(base, k, inf)
+            out = launch(*inputs)
             per_call = _build.LAUNCHES[name] - before
-            ms = ctx.time_cuda(lambda: group.ladder(base, k, inf))
-            ctx.ladder_chains[spec] = mul_chain(ints)
-            rows[spec] = (per_call, ms, *mul_cost(ints, spec[1][-1], inf is not None,
-                                                  name == "g2_ladder"))
-            label = (f"{name} {spec[1]}, "
-                     f"{'a scalar a lane' if spec[2] is None else 'one scalar'}"
-                     f"{', masked' if spec[3] else ''}")
-            calls.append((label, base, k, inf, out))
+            ms = ctx.time_cuda(lambda: launch(*inputs))
+            if mode_b:
+                ctx.ladder_chains[spec] = gen_chain(ints)
+                if sum(ctx.ladder_chains[spec].values()) > MAX_GEN_CHAIN:
+                    raise AssertionError(f"{name}: a chain of {ctx.ladder_chains[spec]}")
+                rows[spec] = (per_call, ms, *gen_cost(ints, spec[1][1], group is cv.G2))
+                label = f"{name} {spec[1]}"
+            else:
+                ctx.ladder_chains[spec] = mul_chain(ints)
+                if spec[2] == hm.R and ctx.ladder_chains[spec] != R_CHAIN:
+                    raise AssertionError(f"{name}: [r] P's chain {ctx.ladder_chains[spec]}")
+                rows[spec] = (per_call, ms, *mul_cost(ints, spec[1][-1], spec[3],
+                                                      group is cv.G2))
+                label = (f"{name} {spec[1]}, "
+                         f"{'a scalar a lane' if spec[2] is None else 'one scalar'}"
+                         f"{', masked' if spec[3] else ''}")
+            calls.append((label, *inputs, out))
             print(f"  {label}: {ms:.4f} ms kernel, chain {ctx.ladder_chains[spec]}", flush=True)
-        plain_ms, errs = check_ladders(ctx, group, calls + mul_edge_calls(ctx, group))
+        edges = gen_edge_calls(ctx, group) if mode_b else mul_edge_calls(ctx, group)
+        plain_ms, errs = check_ladders(ctx, group, calls + edges, mode_b)
         for (spec, (per_call, ms, n_bytes, n_ops)), call in zip(rows.items(), calls):
             done[spec] = (per_call, ms, plain_ms, errs[call[0]], n_bytes, n_ops)
 
@@ -2408,8 +2559,9 @@ def main() -> int:
             print(f"  {name}: {t['ms']:.4f} ms over a chain of {chain['fp12_ops']} dependent "
                   f"Fp12 operations, {t['ms'] / chain['fp12_ops'] * 1e3:.1f} us each; at "
                   f"{VERIFY_BATCH}: {batch['ms']:.4f} ms", flush=True)
-        if name in ("g1_ladder", "g2_ladder"):
-            # every path's call: a few lanes run one thread's chain, 2^20 fill the card
+        if name in LADDERS:
+            # every path's call: a few lanes run one thread's (Mode B: one lane's)
+            # chain, 2^16-2^20 fill the card
             kernels[-1]["by_path"] = {}
             for lb in paths:
                 spec = next((sp for sp in paths[lb][1] if sp[0] == name), None)

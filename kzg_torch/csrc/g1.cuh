@@ -260,6 +260,36 @@ __device__ __forceinline__ void ladder_step(P& acc, P& sum, const El& px, const 
   asm volatile("" ::: "memory");
 }
 
+// One step of the signed-digit (NAF) ladder (mul_ladder.cu's Mode A), on one
+// lane's values in shared memory: acc = 2 acc, then acc + (px, py) where
+// digit b of the lane's scalar is +1 (bit b of plus) and acc + (px, ny),
+// ny = -py, where it is -1 (bit b of minus); a negative digit costs no more
+// than a positive one on an affine base. The madd and its warp-uniform
+// doubling are ladder_step's, so acc == P and acc == -P lanes (a point
+// outside the subgroup reaches them) give the exact madd's words. A warp
+// none of whose lanes has a non-zero digit b skips the madd: with one scalar
+// for every lane that is every step with a zero digit, and no warp diverges.
+// Every thread of the warp must reach the step.
+template <class Ops, class P, class El>
+__device__ __forceinline__ void naf_step(P& acc, P& sum, const El& px, const El& py,
+                                         const El& ny, u32 plus, u32 minus, int b) {
+  acc = jac_double<Ops>(acc);
+  asm volatile("" ::: "memory");
+  const u32 bit = 1u << (b & 31);
+  const bool take = ((plus | minus) & bit) != 0;
+  if (!__any_sync(0xffffffffu, take)) return;
+  bool need;
+  sum = jac_madd_fast<Ops>(acc, px, (minus & bit) ? ny : py, need);
+  asm volatile("" ::: "memory");
+  if (__any_sync(0xffffffffu, need)) {
+    const P d = jac_double<Ops>(acc);
+    if (need) sum = d;
+    asm volatile("" ::: "memory");
+  }
+  if (take) acc = sum;
+  asm volatile("" ::: "memory");
+}
+
 __device__ __forceinline__ jac_t load_jac(const u32* x, const u32* y, const u32* z,
                                           long long stride, long long i) {
   jac_t r;

@@ -10,8 +10,10 @@ G1's three formulas (double, add, madd) are kernel K2 (``csrc/g1_point.cu``,
 device functions in ``csrc/g1.cuh``) on CUDA tensors and their plain versions
 on CPU tensors; G2's are kernel K9 (``csrc/g2_point.cu``, ``csrc/g2.cuh``).
 A scalar multiplication of either group is one launch of its ladder kernel
-(``g1_ladder`` / ``g2_ladder``, ``csrc/mul_ladder.cu``), whose plain version
-is the step-by-step ladder on the plain formulas.
+(``csrc/mul_ladder.cu``): the signed-digit ladder on any affine base
+(``g1_ladder`` / ``g2_ladder``), or the generator's scalar split into
+pieces (``g1_gen_ladder`` / ``g2_gen_ladder``); their plain versions run
+the same steps on the plain formulas.
 The plain versions follow ``kzg_tpu/ops/curve.py:82-170`` term for term,
 exceptional lanes included, so kernel, plain version and the JAX package
 agree bit for bit: G1's on 16-bit limbs in int64, G2's on ``fp2``'s
@@ -21,6 +23,7 @@ operations (whose products are K1 on a CUDA tensor).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -597,6 +600,7 @@ class Group:
     add: Callable
     madd: Callable
     ladder: Callable  # a scalar multiplication in one launch (g1_ladder, g2_ladder)
+    gen_ladder: Callable  # [k] G in one launch (g1_gen_ladder, g2_gen_ladder)
     is_inf: Callable
     to_affine: Callable
     words: Callable  # (host ints, device) -> Montgomery words
@@ -616,11 +620,13 @@ class Group:
 # The kernels are looked up when called, so that a module function swapped
 # for a wrapper (chip_smoke.py's call log) is the one that runs.
 G1 = Group("G1", (FP.L,), lambda p: g1_double(p), lambda p, q: g1_add(p, q),
-           lambda p, q: g1_madd(p, q), lambda p, k, inf=None: g1_ladder(p, k, inf), is_inf,
+           lambda p, q: g1_madd(p, q), lambda p, k, inf=None: g1_ladder(p, k, inf),
+           lambda k: g1_gen_ladder(k), is_inf,
            to_affine, FP.tensor, FP.from_words_many, FP.one_like, g1_gen_affine, hm.G1_GEN,
            hm.g1_add)
 G2 = Group("G2", (FP.L, 2), lambda p: g2_double(p), lambda p, q: g2_add(p, q),
-           lambda p, q: g2_madd(p, q), lambda p, k, inf=None: g2_ladder(p, k, inf), g2_is_inf,
+           lambda p, q: g2_madd(p, q), lambda p, k, inf=None: g2_ladder(p, k, inf),
+           lambda k: g2_gen_ladder(k), g2_is_inf,
            g2_to_affine, fp2.tensor, fp2.to_ints, fp2.one, g2_gen_affine, hm.G2_GEN, hm.g2_add)
 
 
@@ -630,7 +636,7 @@ G2 = Group("G2", (FP.L, 2), lambda p: g2_double(p), lambda p, q: g2_add(p, q),
 
 
 def _top_bit(k: torch.Tensor) -> int:
-    """The highest set bit of any lane of (8, n) scalar words, -1 if none."""
+    """The highest set bit of any lane of (W, n) words, -1 if none."""
     used = (k != 0).any(dim=1).nonzero()
     if used.numel() == 0:
         return -1
@@ -639,13 +645,13 @@ def _top_bit(k: torch.Tensor) -> int:
 
 
 def ladder_plain(p_affine, k: torch.Tensor, inf=None, group=G1):
-    """Plain version of the ladder kernels (any device), in their order: the
-    lanes flagged in ``inf`` take the scalar 0, then from the highest set bit
-    of any lane down, acc = 2 acc and acc + P where the bit is set (a select
-    keeps acc elsewhere; a step where no lane has the bit skips the madd), on
-    the group's plain formulas. Above that bit every acc is the zero words of
+    """The binary double-and-add ladder on the group's plain formulas (any
+    device): the lanes flagged in ``inf`` take the scalar 0, then from the
+    highest set bit of any lane down, acc = 2 acc and acc + P where the bit
+    is set (a select keeps acc elsewhere; a step where no lane has the bit
+    skips the madd). Above that bit every acc is the zero words of
     infinity, as in the JAX package's 256 steps (curve.py:228-245), so the
-    words are its."""
+    words are its. The pieces of gen_ladder_plain run it."""
     double, madd = ((g1_double_plain, g1_madd_plain) if group is G1
                     else (g2_double_plain, g2_madd_plain))
     if inf is not None:
@@ -660,46 +666,132 @@ def ladder_plain(p_affine, k: torch.Tensor, inf=None, group=G1):
     return acc
 
 
-def scalar_on_lanes(k: int, n: int, device) -> torch.Tensor:
-    """One scalar for n lanes: k mod 2^256 as (8, n) standard-form words (a
-    broadcast view)."""
-    words = lb.ints_to_words([k % (1 << 256)], FR.L)
-    return torch.from_numpy(words).to(device).expand(FR.L, n)
+# ---------------------------------------------------------------------------
+# Mode A: the signed-digit (NAF) ladder, for any affine base
+# ---------------------------------------------------------------------------
+
+NAF_WORDS = 9  # a NAF of a 256-bit scalar has up to 257 digits
+_MASK32 = 0xFFFFFFFF
+
+
+def naf_int(k: int) -> tuple[int, int]:
+    """The non-adjacent form of k >= 0 as two masks (plus, minus), k = plus -
+    minus, digit i non-zero in at most one of them and never in two
+    neighbours: with h = 3 k, digit i is bit i + 1 of h minus bit i + 1 of
+    k, so plus = (h & ~k) >> 1 and minus = (k & ~h) >> 1."""
+    h = 3 * k
+    return (h & ~k) >> 1, (k & ~h) >> 1
+
+
+def _signed32(v: torch.Tensor) -> torch.Tensor:
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def naf_words(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """naf_int of every lane of (8, n) standard-form words, as plain tensor
+    operations on k's device: (plus, minus), each (NAF_WORDS, n) int32."""
+    k64 = k.to(torch.int64) & _MASK32
+    kw = torch.cat([k64, torch.zeros_like(k64[:1])])  # (9, n): 3 k < 2^258
+    h, carry = [], torch.zeros_like(k64[0])
+    for w in range(NAF_WORDS):  # h = k + 2 k, word by word with carries
+        two = ((kw[w] << 1) | (kw[w - 1] >> 31 if w else 0)) & _MASK32
+        total = kw[w] + two + carry
+        h.append(total & _MASK32)
+        carry = total >> 32
+    h = torch.stack(h)
+    out = []
+    for a in (h & ~kw & _MASK32, kw & ~h & _MASK32):  # then >> 1 across the words
+        nxt = torch.cat([a[1:], torch.zeros_like(a[:1])])
+        out.append(_signed32((a >> 1) | ((nxt & 1) << 31)))
+    return out[0], out[1]
+
+
+@functools.cache
+def _naf_column(k: int, device):
+    """naf_int(k mod 2^256) as two (NAF_WORDS, 1) int32 tensors on device,
+    made once and kept."""
+    masks = naf_int(k % (1 << 256))
+    return tuple(torch.from_numpy(lb.ints_to_words([m], NAF_WORDS)).to(device) for m in masks)
+
+
+def naf_masks(k, n: int, device):
+    """The NAF masks (plus, minus) of n lanes, each (NAF_WORDS, n) int32: a
+    python int's (kept on the device) broadcast to every lane, or naf_words
+    of (8, n) words."""
+    if isinstance(k, int):
+        return tuple(c.expand(NAF_WORDS, n) for c in _naf_column(k, torch.device(device)))
+    return naf_words(k)
+
+
+def _group_neg(y, group):
+    return FP.neg(y) if group is G1 else fp2.neg(y)
+
+
+def naf_ladder_plain(p_affine, plus, minus, inf=None, group=G1):
+    """Plain version of the Mode A kernels (any device), in their order:
+    the lanes flagged in ``inf`` take the digits 0; at the highest non-zero
+    digit of any lane acc is (x, y, ONE), (x, -y, ONE) or infinity (the madd
+    onto infinity); below it acc = 2 acc, then acc + (x, y) where the
+    digit is +1 and acc + (x, -y) where it is -1, kept by a select (a step
+    where no lane has a non-zero digit skips the madd), on the group's plain
+    formulas. plus, minus: (NAF_WORDS, n) masks (naf_words)."""
+    double, madd = ((g1_double_plain, g1_madd_plain) if group is G1
+                    else (g2_double_plain, g2_madd_plain))
+    if inf is not None:
+        plus, minus = torch.where(inf, 0, plus), torch.where(inf, 0, minus)
+    x, y = p_affine
+    ny = _group_neg(y, group)
+    nonzero = plus | minus
+    acc = inf_like((x, x, x))
+    top = _top_bit(nonzero)
+    if top >= 0:
+        start = (x, torch.where(scalar_bit(minus, top), ny, y), group.one(x))
+        acc = select(scalar_bit(nonzero, top), start, acc)
+    for i in range(top - 1, -1, -1):
+        acc = double(acc)
+        take = scalar_bit(nonzero, i)
+        if bool(take.any()):
+            acc = select(take, madd(acc, (x, torch.where(scalar_bit(minus, i), ny, y))), acc)
+    return acc
 
 
 def _ladder(counter, entry, group, p_affine, k, inf):
     coord = group.coord
     x, y = p_affine
     n = x.shape[-1]
-    if isinstance(k, int):
-        k = scalar_on_lanes(k, n, x.device)
-    if x.shape != coord + (n,) or y.shape != x.shape or tuple(k.shape) != (FR.L, n):
-        raise ValueError(f"the ladder takes {coord + ('n',)} coordinates and (8, n) scalars, "
-                         f"got {tuple(x.shape)}, {tuple(y.shape)} and {tuple(k.shape)}")
+    if x.shape != coord + (n,) or y.shape != x.shape or (
+            not isinstance(k, int) and tuple(k.shape) != (FR.L, n)):
+        raise ValueError(f"the ladder takes {coord + ('n',)} coordinates and (8, n) scalars or "
+                         f"an int, got {tuple(x.shape)}, {tuple(y.shape)} and "
+                         f"{k if isinstance(k, int) else tuple(k.shape)}")
     if inf is not None and tuple(inf.shape) != (n,):
         raise ValueError(f"inf must have shape ({n},)")
     if x.device.type == "cpu":
-        return ladder_plain(p_affine, k, inf, group)
-    x, y, k = x.contiguous(), y.contiguous(), k.contiguous()
-    _build.check_cuda(x, y, k)
+        return naf_ladder_plain(p_affine, *naf_masks(k, n, x.device), inf, group)
+    plus, minus = _naf_column(k, x.device) if isinstance(k, int) else naf_words(k)
+    x, y = x.contiguous(), y.contiguous()
+    _build.check_cuda(x, y, plus, minus)
     if inf is not None and (inf.dtype != torch.bool or inf.device != x.device
                             or not inf.is_contiguous()):
         raise ValueError("inf must be a contiguous bool tensor on the operands' device")
     out = tuple(torch.empty_like(x) for _ in range(3))
     if n:
-        _build.launch(counter, entry, x.data_ptr(), y.data_ptr(), k.data_ptr(),
+        _build.launch(counter, entry, x.data_ptr(), y.data_ptr(), plus.data_ptr(),
+                      minus.data_ptr(), int(not isinstance(k, int)),
                       None if inf is None else inf.data_ptr(), *(o.data_ptr() for o in out), n)
     return out
 
 
 def g1_ladder(p_affine, k, inf=None):
-    """[k_i] P_i on every lane: p_affine (x, y) (12, n) affine Montgomery
-    words, k (8, n) standard-form scalar words or a python int (one scalar
-    for every lane, mod 2^256), inf an (n,) bool mask or None (a flagged
-    lane's product is infinity). Returns a Jacobian (12, n) triple. CPU
-    tensors take ``ladder_plain``; CUDA tensors launch ``kzg_g1_ladder``
-    (csrc/mul_ladder.cu, one launch counted as ``g1_ladder``), whose output
-    equals the plain version's word for word."""
+    """[k_i] P_i on every lane by the signed-digit ladder: p_affine (x, y)
+    (12, n) affine Montgomery words, k (8, n) standard-form scalar words or a
+    python int (one scalar for every lane, mod 2^256), inf an (n,) bool mask
+    or None (a flagged lane's product is infinity). Returns a Jacobian
+    (12, n) triple. The scalars' NAF masks: an int's computed once and kept
+    on the device, words' by naf_words. CPU tensors take
+    ``naf_ladder_plain``; CUDA tensors launch ``kzg_g1_ladder``
+    (csrc/mul_ladder.cu Mode A, one launch counted as ``g1_ladder``), whose
+    output equals the plain version's word for word."""
     return _ladder("g1_ladder", "kzg_g1_ladder", G1, p_affine, k, inf)
 
 
@@ -709,20 +801,105 @@ def g2_ladder(p_affine, k, inf=None):
     return _ladder("g2_ladder", "kzg_g2_ladder", G2, p_affine, k, inf)
 
 
+# ---------------------------------------------------------------------------
+# Mode B: the generator's scalar split into pieces, a thread a piece
+# ---------------------------------------------------------------------------
+
+GEN_SPLIT_BITS = 4  # bits a piece: csrc/mul_ladder.cu kGenPieceBits
+GEN_SPLIT_PIECES = 256 // GEN_SPLIT_BITS
+
+
+@functools.cache
+def gen_pow2(group=G1) -> tuple:
+    """The host-exact affine points 2^j G for j < 256, G the group's
+    generator."""
+    out = [group.gen]
+    for _ in range(255):
+        out.append(group.host_add(out[-1], out[-1]))
+    return tuple(out)
+
+
+@functools.cache
+def split_bases(group=G1, device="cpu", bits: int = GEN_SPLIT_BITS):
+    """Mode B's constant bases: the affine words of [2^(bits j)] G for
+    j < 256 / bits, each coordinate of the group's shape with 256 / bits
+    lanes, on device; made on the host once a group and device and kept."""
+    pts = gen_pow2(group)[::bits]
+    return tuple(group.words([p[c] for p in pts], device) for c in (0, 1))
+
+
+def gen_ladder_plain(k: torch.Tensor, group=G1, bits: int = GEN_SPLIT_BITS):
+    """Plain version of the Mode B kernels (any device), in their order:
+    piece j of each lane's (8, n) scalar words (bits [bits j, bits j +
+    bits)) times [2^(bits j)] G by ladder_plain, then at h = 1, 2, 4, ..
+    piece j + h added into piece j, j a multiple of 2 h, by the group's
+    exact plain add (a level's sums halve the pieces' axis). Returns the
+    Jacobian [k_i] G triple of n lanes."""
+    add = g1_add_plain if group is G1 else g2_add_plain
+    pieces = 256 // bits
+    n = k.shape[1]
+    k64 = k.to(torch.int64) & _MASK32
+    digits = torch.stack([(k64[(bits * j) // 32] >> ((bits * j) % 32)) & ((1 << bits) - 1)
+                          for j in range(pieces)])  # (pieces, n)
+    words = torch.zeros(FR.L, pieces * n, dtype=torch.int32, device=k.device)
+    words[0] = _signed32(digits.reshape(-1))
+    bx, by = (c.unsqueeze(-1).expand(c.shape + (n,)).reshape(group.coord + (-1,))
+              for c in split_bases(group, k.device, bits))
+    acc = tuple(c.reshape(group.coord + (pieces, n))
+                for c in ladder_plain((bx, by), words, None, group))
+    while acc[0].shape[-2] > 1:  # the sums of pieces j and j + h sit side by side
+        acc = add(tuple(c[..., 0::2, :] for c in acc), tuple(c[..., 1::2, :] for c in acc))
+    return tuple(c[..., 0, :].contiguous() for c in acc)
+
+
+def _gen_ladder(counter, entry, group, k):
+    if k.dim() != 2 or k.shape[0] != FR.L:
+        raise ValueError(f"the generator's ladder takes (8, n) scalar words, got "
+                         f"{tuple(k.shape)}")
+    n = k.shape[1]
+    if k.device.type == "cpu":
+        return gen_ladder_plain(k, group)
+    k = k.contiguous()
+    bx, by = split_bases(group, k.device)
+    _build.check_cuda(k, bx, by)
+    out = tuple(torch.empty(group.coord + (n,), dtype=torch.int32, device=k.device)
+                for _ in range(3))
+    if n:
+        _build.launch(counter, entry, bx.data_ptr(), by.data_ptr(), k.data_ptr(),
+                      *(o.data_ptr() for o in out), n)
+    return out
+
+
+def g1_gen_ladder(k):
+    """[k_i] G1 for (8, n) standard-form scalar words, not reduced mod r
+    (the sum is [k_i mod r] G1): a Jacobian (12, n) triple. CPU tensors take
+    ``gen_ladder_plain``; CUDA tensors launch ``kzg_g1_gen_ladder``
+    (csrc/mul_ladder.cu Mode B: two warps a lane, a thread a 4-bit piece
+    on its constant base, then a tree of adds; one launch counted as
+    ``g1_gen_ladder``), whose output equals the plain version's word for
+    word."""
+    return _gen_ladder("g1_gen_ladder", "kzg_g1_gen_ladder", G1, k)
+
+
+def g2_gen_ladder(k):
+    """[k_i] G2, as g1_gen_ladder on (12, 2, n) output: ``kzg_g2_gen_ladder``
+    on CUDA tensors, counted as ``g2_gen_ladder``."""
+    return _gen_ladder("g2_gen_ladder", "kzg_g2_gen_ladder", G2, k)
+
+
 def mul_scalar(p, k, group=G1):
     """[k] p for Jacobian base points (curve.py:205-226). k is either a
     python int, one scalar for every lane (the codec's [r] P), or (8, n)
     standard-form Fr words, a scalar a lane.
 
     With an int, p's finite lanes must have Z = 1 (points as the codec and
-    g1_to_device / g2_to_device make them) and the group's ladder runs it in
-    one launch, with mixed adds on (X, Y) and the lanes at infinity flagged.
-    The words are those of the JAX package's double-and-add over adds: with
-    Z2 = 1 the add's U1, S1 and Z1 Z2 are X1, Y1 and Z1, its exceptional
-    lanes the madd's, and the first set bit's madd onto infinity gives
-    (X, Y, 1) = p. With words, every step adds on the group's formula
-    kernels and a select keeps it where the bit is set (no path calls this
-    form)."""
+    g1_to_device / g2_to_device make them) and the group's signed-digit
+    ladder runs it in one launch, with mixed adds on (X, Y) and (X, -Y) and
+    the lanes at infinity flagged: the same group elements as the JAX
+    package's double-and-add over adds (with Z2 = 1 a mixed add is the
+    add), in other Jacobian words. With words, every step adds on the
+    group's formula kernels and a select keeps it where the bit is set (no
+    path calls this form)."""
     if isinstance(k, int):
         inf = group.is_inf(p)
         z_one = (p[2] == group.one(p[2])).flatten(0, len(group.coord) - 1).all(dim=0)
@@ -742,10 +919,11 @@ def mul_scalar_affine(p_affine, k: torch.Tensor, double=None, madd=None, group=G
     """[k] p for affine base points: MSB-first double-and-add with mixed adds
     (curve.py:228-245). p_affine (x, y) (12, n) or (12, 2, n) words; k (8, n)
     standard-form Fr words. Lanes must not be infinite (callers mask them).
-    Without ``double`` and ``madd``: the group's ladder, one launch on CUDA
-    tensors (g1_ladder, g2_ladder). With them: the 256 steps on those
-    formulas, one call of each a step (msm.msm_batched_plain; on the card
-    K2's wrappers replay the route the ladder kernels replaced)."""
+    Without ``double`` and ``madd``: the group's signed-digit ladder, one
+    launch on CUDA tensors (g1_ladder, g2_ladder; the same group elements,
+    other Jacobian words). With them: the 256 steps on those formulas, one
+    call of each a step, the JAX package's words (msm.msm_batched_plain; on
+    the card K2's wrappers replay the route the ladder kernels replaced)."""
     if double is None and madd is None:
         return group.ladder(p_affine, k)
     double, madd = double or group.double, madd or group.madd

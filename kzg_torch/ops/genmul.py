@@ -22,7 +22,6 @@ entries.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -37,23 +36,15 @@ from ..utils.device import resolve_device
 GEN_WINDOW_BITS = 8
 GEN_WINDOWS = 32  # 256 / GEN_WINDOW_BITS
 GEN_ENTRIES = 1 << GEN_WINDOW_BITS
-# Below this batch a process that has not built the tables runs the plain
-# 256-step ladder: the one-time build only pays off over hundreds of points.
+# Below this batch a process that has not built the tables runs the group's
+# generator ladder (curve.g1_gen_ladder / g2_gen_ladder, one launch): the
+# one-time build only pays off over hundreds of points.
 GENMUL_TABLE_THRESHOLD = 512
-
-
-@functools.cache
-def _gen_pow2(group=cv.G1):
-    """The host-exact affine points 2^j G for j < 256."""
-    out = [group.gen]
-    for _ in range(GEN_WINDOW_BITS * GEN_WINDOWS - 1):
-        out.append(group.host_add(out[-1], out[-1]))
-    return tuple(out)
 
 
 def _level_bases(k: int, group=cv.G1) -> list:
     """Host-exact affine points [2^(8w + k) G for w < 32]."""
-    return [_gen_pow2(group)[GEN_WINDOW_BITS * w + k] for w in range(GEN_WINDOWS)]
+    return [cv.gen_pow2(group)[GEN_WINDOW_BITS * w + k] for w in range(GEN_WINDOWS)]
 
 
 def _build_tables(device, group=cv.G1, madd=None):
@@ -243,13 +234,13 @@ def mul_gen(k: torch.Tensor, tables=None, group=cv.G1):
 def mul_gen_auto(k: torch.Tensor, group=cv.G1):
     """[k] G through the group's tables when they exist on k's device or the
     batch amortizes building them (GENMUL_TABLE_THRESHOLD), else through the
-    256-step ladder on the group's kernels. The same group elements either
-    way."""
+    group's generator ladder (the scalar split into 4-bit pieces on
+    constant bases, one launch). The same group elements either way."""
     batch = tuple(k.shape[1:])
     nb = math.prod(batch)
     if tables_built(k.device, group) or nb >= GENMUL_TABLE_THRESHOLD:
         return mul_gen(k, group=group)
-    out = cv.mul_scalar_affine(group.gen_affine(k.device, nb), k.reshape(FR.L, nb), group=group)
+    out = group.gen_ladder(k.reshape(FR.L, nb))
     return tuple(c.reshape(group.coord + batch) for c in out)
 
 

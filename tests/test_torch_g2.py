@@ -117,10 +117,11 @@ KS = [0, 1, 2, hm.R - 1, 255, 256, 0x5D2A13FC6B4E8D0F9A7C3B1E6F2D4A8B0C9E7F1A3B5
 
 
 def test_mul_g2_gen_both_routes_match_hostmath(monkeypatch):
-    """mul_g2_gen below the threshold without tables (the 256-step ladder on
-    K9's plain versions), then through the window tables (seven madds and
-    one affine conversion to build, then the fold): the same points as
-    hostmath's k G2. The G2 tables live beside G1's under their own key."""
+    """mul_g2_gen below the threshold without tables (the generator
+    ladder's plain version: the scalar's 4-bit pieces on constant bases),
+    then through the window tables (seven madds and one affine conversion
+    to build, then the fold): the same points as hostmath's k G2. The G2
+    tables live beside G1's under their own key."""
     monkeypatch.setattr(genmul, "_tables", {})
     k = FR.tensor(KS, "cpu", mont=False)
     want = [hm.g2_mul(hm.G2_GEN, v) for v in KS]

@@ -190,15 +190,15 @@ def test_chunked_srs_g1_refuses_an_infinity_lane(monkeypatch):
 
 
 def test_mul_gen_auto_routes_by_tables_and_size(monkeypatch):
-    """Without tables and below the threshold: the ladder
-    (cv.mul_scalar_affine, held to the oracle in test_torch_curve.py), no
+    """Without tables and below the threshold: the generator ladder
+    (cv.g1_gen_ladder, held to the oracle in test_torch_mul_ladder.py), no
     table build; at the threshold: the tables are built."""
     built = _tables()
     monkeypatch.setattr(genmul, "_tables", {})
     monkeypatch.setattr(genmul, "_build_tables", lambda device, group: built)
     ladder = []
-    monkeypatch.setattr(cv, "mul_scalar_affine",
-                        lambda p, k, group: ladder.append(k.shape) or genmul.mul_gen(k, built))
+    monkeypatch.setattr(cv, "g1_gen_ladder",
+                        lambda k: ladder.append(k.shape) or genmul.mul_gen(k, built))
     ks = [3, hm.R - 2, 0]
     k = FR.tensor(ks, "cpu", mont=False)
     want = [hm.g1_mul(hm.G1_GEN, v) if v else None for v in ks]
