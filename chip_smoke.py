@@ -222,10 +222,12 @@ Jacobian point. A call of a few lanes runs one thread's chain (mul_chain:
 from the top non-zero NAF digit of any lane, a doubling a step below it and
 a madd a step where some lane has a non-zero digit), which stands beside
 the bound. The generator's (gen_cost; Mode B) needs, on a lane with k mod
-r != 0, the fewer operations of the ladder on k mod r and of the 4-bit
-pieces' own binary ladders on the 64 constant bases and an add for each
-non-zero piece after the first; it reads the bases once and 32 bytes a
-lane and writes a Jacobian point; its chain (gen_chain) is the pieces'
+r != 0, a madd for each table point after the first by the least of the
+fixed-base methods the repo has tables for: the binary method on the
+bases [2^j] G (popcount(k mod r) - 1 madds), its signed form (NAF weight
+- 1) and genmul's 8-bit windows (a non-zero window after the first; 31 on
+most scalars); it reads the table points its lanes use once and 32 bytes
+a lane and writes a Jacobian point; its chain (gen_chain) is the pieces'
 steps, then log2(64) adds, one lane's, which stands beside the bound. The
 pairing's
 kernels are counted in the cheapest published forms of its Fp2 operations
@@ -384,15 +386,16 @@ NO_FORMULAS = {"g1_double": 0, "g1_madd": 0, "g1_add": 0, "g2_double": 0, "g2_ma
                "g2_add": 0}
 MODE_A, MODE_B = ("g1_ladder", "g2_ladder"), ("g1_gen_ladder", "g2_gen_ladder")
 LADDERS = MODE_A + MODE_B
+NO_LADDERS = dict.fromkeys(LADDERS, 0)
 R_CHAIN = {"doubles": 255, "madds": 59}  # Mode A's [r] P: r's NAF has 60 non-zero digits
 MAX_GEN_CHAIN = 40  # Mode B's point operations on one lane's chain, at most
 # the reference-size setup (the generator multiplications of 9 lanes: Mode B)
-SETUP_REF_LAUNCHES = dict(NO_FORMULAS, g1_ladder=0, g2_ladder=0, g1_gen_ladder=1,
-                          g2_gen_ladder=1)
+# (every table holds every ladder's count, 0 where the path launches none)
+SETUP_REF_LAUNCHES = {**NO_FORMULAS, **NO_LADDERS, "g1_gen_ladder": 1, "g2_gen_ladder": 1}
 # the 2^16 setup's load (the subgroup check of each group's batch: Mode A)
-LOAD_LAUNCHES = dict(NO_FORMULAS, g1_ladder=1, g2_ladder=1, g1_gen_ladder=0, g2_gen_ladder=0)
+LOAD_LAUNCHES = {**NO_FORMULAS, **NO_LADDERS, "g1_ladder": 1, "g2_ladder": 1}
 # the 2^20 decompression: the G1 subgroup check
-DECOMPRESS_LAUNCHES = dict(NO_FORMULAS, g1_ladder=1, g2_ladder=0, g1_gen_ladder=0)
+DECOMPRESS_LAUNCHES = {**NO_FORMULAS, **NO_LADDERS, "g1_ladder": 1}
 G2_CHECK_SIZES = (1, 127, 128, 129)  # K9's edge checks; the paths' shapes are replayed
 VERIFY = f"verify_proof 2^{LOG_N} (the main path's C, the proof path's pi, x and y)"
 VERIFY_SIZES = (1, 16, 64)  # verify_proofs_batch's V; the largest is a driven path
@@ -839,28 +842,43 @@ def _pieces(v: int) -> list:
 
 def gen_cost(scalars, n: int, g2: bool):
     """(bytes, operations) of one Mode B call (g1_gen_ladder,
-    g2_gen_ladder) of n lanes holding ``scalars``: the constant bases
-    read once, a lane's scalar words read and its Jacobian output written;
-    and the point operations [k] G needs on each lane with k mod r != 0, the
-    fewer of two methods: the ladder on k mod r (_ladder_ops) and, on the
-    given bases, each non-zero piece's own binary ladder (bitlen - 1
-    doublings, popcount - 1 madds) and an add for each non-zero piece after
-    the first."""
+    g2_gen_ladder) of n lanes holding ``scalars``: what [k] G needs on
+    constant bases, whatever route a kernel takes. Each lane with k mod
+    r != 0 needs, by the fixed-base methods the repo has tables for, a copy
+    of its first table point and a madd for each further one: the binary
+    method on the bases [2^j] G (curve.gen_pow2; popcount(k mod r) points),
+    its signed form on the same bases (the NAF's weight; -Q is free on an
+    affine Q) or genmul's 8-bit windows (a point of the 32 x 256-point
+    tables for each non-zero window of k mod r). A method reads the table
+    points its lanes use, each once, and 32 bytes of scalar a lane, and
+    writes a Jacobian point a lane; of the three, the one of least bound_ms
+    is returned."""
     from kzg_torch.ops import curve as cv
     from kzg_torch.utils import hostmath as hm
 
     coord = FP2_BYTES if g2 else FP_BYTES
-    dbl, madd, add = ((G2_DBL_OPS, G2_MADD_OPS, G2_ADD_OPS) if g2
-                      else (G1_DBL_OPS, G1_MADD_OPS, G1_ADD_OPS))
-    ops = 0
-    for v, count in collections.Counter(scalars).items():
-        if v % hm.R == 0:
-            continue
-        live = [d for d in _pieces(v) if d]
-        split = (sum((d.bit_length() - 1) * dbl + (bin(d).count("1") - 1) * madd for d in live)
-                 + (len(live) - 1) * add)
-        ops += count * min(split, _ladder_ops(v % hm.R, dbl, madd))
-    return cv.GEN_SPLIT_PIECES * 2 * coord + n * (32 + 3 * coord), ops
+    madd = G2_MADD_OPS if g2 else G1_MADD_OPS
+
+    def binary(v):
+        return {j for j in range(v.bit_length()) if v >> j & 1}
+
+    def signed(v):
+        plus, minus = cv.naf_int(v)
+        return binary(plus | minus)
+
+    def windows(v):
+        return {(w, v >> (8 * w) & 255) for w in range(32) if v >> (8 * w) & 255}
+
+    costs = []
+    for points in (binary, signed, windows):
+        used, ops = set(), 0
+        for v, count in collections.Counter(k % hm.R for k in scalars).items():
+            if v:
+                pts = points(v)
+                used |= pts
+                ops += count * (len(pts) - 1) * madd
+        costs.append((len(used) * 2 * coord + n * (32 + 3 * coord), ops))
+    return min(costs, key=lambda c: bound_ms(*c)[0])
 
 
 def gen_chain(scalars) -> dict:

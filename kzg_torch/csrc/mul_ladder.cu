@@ -276,9 +276,13 @@ static int launch_naf(Kernel kernel, const void* px, const void* py, const void*
   return (int)cudaGetLastError();
 }
 
+// pieces: the bases' lane count, which the caller chose; a count other
+// than kGenPieces is refused (cudaErrorInvalidValue), so that the width
+// is set here alone.
 template <class Ops, class Kernel>
-static int launch_gen(Kernel kernel, const void* bx, const void* by, const void* k, void* ox, void* oy,
-               void* oz, int n, void* stream) {
+static int launch_gen(Kernel kernel, const void* bx, const void* by, int pieces, const void* k,
+                      void* ox, void* oy, void* oz, int n, void* stream) {
+  if (pieces != kGenPieces) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   constexpr int smem = (int)sizeof(LadderSmem<Ops, kGenThreads>);
   constexpr int lanes = kGenThreads / kGenPieces;
@@ -313,17 +317,19 @@ extern "C" int kzg_g2_ladder(const void* px, const void* py, const void* plus, c
                                                            oz, n, stream);
 }
 
-// Mode B. bx, by: (12, kGenPieces) (G1) or (12, 2, kGenPieces) (G2) affine
-// Montgomery words of [2^(kGenPieceBits j)] G; k: (8, n) standard-form
-// scalar words; ox, oy, oz: (12, n) or (12, 2, n) Jacobian output.
-extern "C" int kzg_g1_gen_ladder(const void* bx, const void* by, const void* k, void* ox,
-                                 void* oy, void* oz, int n, void* stream) {
+// Mode B. bx, by: (12, pieces) (G1) or (12, 2, pieces) (G2) affine
+// Montgomery words of [2^(kGenPieceBits j)] G, pieces == kGenPieces; k:
+// (8, n) standard-form scalar words; ox, oy, oz: (12, n) or (12, 2, n)
+// Jacobian output.
+extern "C" int kzg_g1_gen_ladder(const void* bx, const void* by, int pieces, const void* k,
+                                 void* ox, void* oy, void* oz, int n, void* stream) {
   using namespace kzg;
-  return launch_gen<FieldCalled>(g1_gen_ladder_kernel, bx, by, k, ox, oy, oz, n, stream);
+  return launch_gen<FieldCalled>(g1_gen_ladder_kernel, bx, by, pieces, k, ox, oy, oz, n, stream);
 }
 
-extern "C" int kzg_g2_gen_ladder(const void* bx, const void* by, const void* k, void* ox,
-                                 void* oy, void* oz, int n, void* stream) {
+extern "C" int kzg_g2_gen_ladder(const void* bx, const void* by, int pieces, const void* k,
+                                 void* ox, void* oy, void* oz, int n, void* stream) {
   using namespace kzg;
-  return launch_gen<Fp2Ops<FieldCalled>>(g2_gen_ladder_kernel, bx, by, k, ox, oy, oz, n, stream);
+  return launch_gen<Fp2Ops<FieldCalled>>(g2_gen_ladder_kernel, bx, by, pieces, k, ox, oy, oz, n,
+                                         stream);
 }

@@ -65,8 +65,8 @@ SIGNATURES = {
     "kzg_g2_madd": [_P] * 8 + [_I, _P],
     "kzg_g1_ladder": [_P] * 4 + [_I] + [_P] * 4 + [_I, _P],
     "kzg_g2_ladder": [_P] * 4 + [_I] + [_P] * 4 + [_I, _P],
-    "kzg_g1_gen_ladder": [_P] * 6 + [_I, _P],
-    "kzg_g2_gen_ladder": [_P] * 6 + [_I, _P],
+    "kzg_g1_gen_ladder": [_P, _P, _I] + [_P] * 4 + [_I, _P],
+    "kzg_g2_gen_ladder": [_P, _P, _I] + [_P] * 4 + [_I, _P],
     "kzg_miller_loop": [_P] * 5 + [_I, _P],
     "kzg_final_exp": [_P] * 3 + [_I, _P],
 }

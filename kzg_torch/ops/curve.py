@@ -805,7 +805,9 @@ def g2_ladder(p_affine, k, inf=None):
 # Mode B: the generator's scalar split into pieces, a thread a piece
 # ---------------------------------------------------------------------------
 
-GEN_SPLIT_BITS = 4  # bits a piece: csrc/mul_ladder.cu kGenPieceBits
+# bits a piece, as csrc/mul_ladder.cu's kGenPieceBits: the kernels refuse
+# bases of another piece count
+GEN_SPLIT_BITS = 4
 GEN_SPLIT_PIECES = 256 // GEN_SPLIT_BITS
 
 
@@ -820,23 +822,24 @@ def gen_pow2(group=G1) -> tuple:
 
 
 @functools.cache
-def split_bases(group=G1, device="cpu", bits: int = GEN_SPLIT_BITS):
-    """Mode B's constant bases: the affine words of [2^(bits j)] G for
-    j < 256 / bits, each coordinate of the group's shape with 256 / bits
-    lanes, on device; made on the host once a group and device and kept."""
-    pts = gen_pow2(group)[::bits]
+def split_bases(group=G1, device="cpu"):
+    """Mode B's constant bases: the affine words of [2^(GEN_SPLIT_BITS j)] G
+    for j < GEN_SPLIT_PIECES, each coordinate of the group's shape with
+    GEN_SPLIT_PIECES lanes, on device; made on the host once a group and
+    device and kept."""
+    pts = gen_pow2(group)[::GEN_SPLIT_BITS]
     return tuple(group.words([p[c] for p in pts], device) for c in (0, 1))
 
 
-def gen_ladder_plain(k: torch.Tensor, group=G1, bits: int = GEN_SPLIT_BITS):
+def gen_ladder_plain(k: torch.Tensor, group=G1):
     """Plain version of the Mode B kernels (any device), in their order:
-    piece j of each lane's (8, n) scalar words (bits [bits j, bits j +
-    bits)) times [2^(bits j)] G by ladder_plain, then at h = 1, 2, 4, ..
+    piece j of each lane's (8, n) scalar words (bits [b j, b j + b), b =
+    GEN_SPLIT_BITS) times [2^(b j)] G by ladder_plain, then at h = 1, 2, 4, ..
     piece j + h added into piece j, j a multiple of 2 h, by the group's
     exact plain add (a level's sums halve the pieces' axis). Returns the
     Jacobian [k_i] G triple of n lanes."""
     add = g1_add_plain if group is G1 else g2_add_plain
-    pieces = 256 // bits
+    bits, pieces = GEN_SPLIT_BITS, GEN_SPLIT_PIECES
     n = k.shape[1]
     k64 = k.to(torch.int64) & _MASK32
     digits = torch.stack([(k64[(bits * j) // 32] >> ((bits * j) % 32)) & ((1 << bits) - 1)
@@ -844,7 +847,7 @@ def gen_ladder_plain(k: torch.Tensor, group=G1, bits: int = GEN_SPLIT_BITS):
     words = torch.zeros(FR.L, pieces * n, dtype=torch.int32, device=k.device)
     words[0] = _signed32(digits.reshape(-1))
     bx, by = (c.unsqueeze(-1).expand(c.shape + (n,)).reshape(group.coord + (-1,))
-              for c in split_bases(group, k.device, bits))
+              for c in split_bases(group, k.device))
     acc = tuple(c.reshape(group.coord + (pieces, n))
                 for c in ladder_plain((bx, by), words, None, group))
     while acc[0].shape[-2] > 1:  # the sums of pieces j and j + h sit side by side
@@ -865,8 +868,8 @@ def _gen_ladder(counter, entry, group, k):
     out = tuple(torch.empty(group.coord + (n,), dtype=torch.int32, device=k.device)
                 for _ in range(3))
     if n:
-        _build.launch(counter, entry, bx.data_ptr(), by.data_ptr(), k.data_ptr(),
-                      *(o.data_ptr() for o in out), n)
+        _build.launch(counter, entry, bx.data_ptr(), by.data_ptr(), bx.shape[-1],
+                      k.data_ptr(), *(o.data_ptr() for o in out), n)
     return out
 
 

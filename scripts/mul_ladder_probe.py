@@ -19,8 +19,10 @@ launches after a warm-up one):
   point of order 3 among them.
 - Mode B, both groups, at 1, 64 and 511 lanes (the verify, a batch of 64,
   the largest call below GENMUL_TABLE_THRESHOLD), the variants' piece
-  width with its own constant bases. Checked on every lane of the 64-lane
-  call and on mul_cases.gen_case.
+  width with its own constant bases (piece_bases). Checked on
+  mul_cases.gen_case's 64 lanes: the committed width against
+  gen_ladder_plain bit for bit, every width against hostmath by group
+  element (gen_ladder_plain has the committed width only).
 
 Then GENMUL_TABLE_THRESHOLD's crossover on the committed kernels: each
 group's Mode B at 511 to 2^16 lanes against the generator tables' fold at
@@ -138,14 +140,21 @@ def mode_a(lib, group, x, y, plus, minus, inf):
                     *(o.data_ptr() for o in out), n)
 
 
+def piece_bases(group, bits, device):
+    """A variant's constant bases: the affine words of [2^(bits j)] G,
+    j < 256 / bits (curve.split_bases at another width)."""
+    pts = cv.gen_pow2(group)[::bits]
+    return tuple(group.words([p[c] for p in pts], device) for c in (0, 1))
+
+
 def mode_b(lib, group, k, bits):
     n = k.shape[1]
-    bx, by = cv.split_bases(group, k.device, bits)
+    bx, by = piece_bases(group, bits, k.device)
     out = tuple(torch.empty(group.coord + (n,), dtype=torch.int32, device=k.device)
                 for _ in range(3))
     entry = "kzg_g1_gen_ladder" if group is cv.G1 else "kzg_g2_gen_ladder"
-    return launcher(lib, entry, (bx, by, k) + out, bx.data_ptr(), by.data_ptr(), k.data_ptr(),
-                    *(o.data_ptr() for o in out), n)
+    return launcher(lib, entry, (bx, by, k) + out, bx.data_ptr(), by.data_ptr(), bx.shape[-1],
+                    k.data_ptr(), *(o.data_ptr() for o in out), n)
 
 
 def time_ms(run, reps: int) -> float:
@@ -173,8 +182,9 @@ def public_points(group, n, device):
 def check_variants(variants, device, failed):
     """Every variant against the plain versions, bit for bit: Mode A on the
     first 129 and last 256 lanes of each group's widest call, Mode B on
-    gen_case's 64 lanes at each piece width. A variant whose launch is
-    refused goes into ``failed`` (name -> the error) and is not timed."""
+    gen_case's 64 lanes (at another piece width than the committed one, by
+    group element against hostmath). A variant whose launch is refused goes
+    into ``failed`` (name -> the error) and is not timed."""
     groups = {"G1": cv.G1, "G2": cv.G2}
 
     def run(name, fn):
@@ -203,16 +213,17 @@ def check_variants(variants, device, failed):
         print(f"Mode A {gname}: every variant that launched bit-identical to naf_ladder_plain",
               flush=True)
         k = mul_cases.gen_case(64, SEED, device)
-        for bits in sorted({piece_bits(name) for name in variants}):
-            want = cv.gen_ladder_plain(k, group, bits)
-            for name, (lib, _) in variants.items():
-                if piece_bits(name) != bits:
-                    continue
-                got = run(name, mode_b(lib, group, k, bits))
-                if got is not None and not same(got, want):
-                    raise AssertionError(f"{name}: Mode B {gname} differs from gen_ladder_plain")
-        print(f"Mode B {gname}: every variant that launched bit-identical to gen_ladder_plain",
-              flush=True)
+        want, host = cv.gen_ladder_plain(k, group), mul_cases.gen_oracle(group, k, range(64))
+        for name, (lib, _) in variants.items():
+            got = run(name, mode_b(lib, group, k, piece_bits(name)))
+            if got is None:
+                continue
+            if piece_bits(name) == cv.GEN_SPLIT_BITS and not same(got, want):
+                raise AssertionError(f"{name}: Mode B {gname} differs from gen_ladder_plain")
+            if group.host_affine(*group.to_affine(got)) != host:
+                raise AssertionError(f"{name}: Mode B {gname} differs from hostmath")
+        print(f"Mode B {gname}: every variant that launched equal to hostmath, those of "
+              f"{cv.GEN_SPLIT_BITS}-bit pieces bit-identical to gen_ladder_plain", flush=True)
 
 
 def seeded_scalars(n, seed, device):

@@ -320,7 +320,9 @@ def test_mul_ladder_kernels_match_plain(cuda, name, mode):
     g2_gen_ladder; gen_ladder_plain): gen_case's scalars, not reduced. One
     launch a call; the plain version once over every size's lanes side by
     side (its cost is its steps); the case lanes against the host oracles
-    by group element."""
+    by group element. Mode B's entry refuses bases of another piece count
+    than its own (cudaErrorInvalidValue), so that curve.GEN_SPLIT_BITS
+    cannot drift from the kernel's width unseen."""
     from kzg_torch.ops import _build
     from kzg_torch.utils import mul_cases
 
@@ -354,6 +356,12 @@ def test_mul_ladder_kernels_match_plain(cuda, name, mode):
     got = tuple(torch.cat([o[j] for o in outs], -1) for j in range(3))
     if mode == "[k] G":
         assert _same(got, cv.gen_ladder_plain(cat[0], group))
+        bx, by = (c[..., :cv.GEN_SPLIT_PIECES // 2].contiguous()
+                  for c in cv.split_bases(group, cuda))
+        entry = getattr(_build.library(), f"kzg_{name.lower()}_gen_ladder")
+        assert entry(bx.data_ptr(), by.data_ptr(), bx.shape[-1], k.data_ptr(),
+                     *(o.data_ptr() for o in out), 1,
+                     torch.cuda.current_stream().cuda_stream) == 1
     else:
         assert _same(got, cv.naf_ladder_plain(cat[:2], *cat[2:], group=group))
 

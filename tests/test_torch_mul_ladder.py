@@ -265,10 +265,13 @@ def test_mul_cost_counts_what_the_scalar_multiplication_needs():
     doublings and 1 madd; k = 2^255 + 1, 255 and 1; r, 255 and 59; a flagged
     lane and k = 0 nothing. Its chain: a doubling a step below the top
     non-zero digit of any lane, a madd a step where some lane has one: [r] P
-    is 255 doublings and 59 madds. Mode B's (gen_cost, gen_chain): the fewer
-    operations of the ladder on k mod r and of the pieces' own ladders and
-    adds (k = 2^8 + 3: pieces 3 and 1, a doubling, a madd and an add); a
-    chain of the pieces' steps and log2(64) adds, at most 12."""
+    is 255 doublings and 59 madds. Mode B's (gen_cost, gen_chain): a madd
+    for each table point after a lane's first, by the least of the binary
+    method on the bases 2^j G, its signed form and genmul's 8-bit windows,
+    on k mod r (k = 2^8 + 3: two windows, one madd; 2^200 - 1: the NAF's two
+    digits, one madd, against 199 and 24; r + 2: one point, no madd), and
+    the table points it uses read once; a chain of the pieces' steps and
+    log2(64) adds, at most 12."""
     import chip_smoke as cs
 
     full = (1 << 256) - 1
@@ -281,7 +284,9 @@ def test_mul_cost_counts_what_the_scalar_multiplication_needs():
     assert cs.mul_chain([hm.R]) == {"doubles": 255, "madds": 59}
     assert cs.mul_chain([]) == {"doubles": 0, "madds": 0}
     nbytes, ops = cs.gen_cost([(1 << 8) + 3, 0], 2, False)
-    assert ops == cs.G1_DBL_OPS + cs.G1_MADD_OPS + cs.G1_ADD_OPS
-    assert nbytes == cv.GEN_SPLIT_PIECES * 2 * 48 + 2 * (32 + 3 * 48)
+    assert ops == cs.G1_MADD_OPS
+    assert nbytes == 2 * 2 * 48 + 2 * (32 + 3 * 48)
+    assert cs.gen_cost([(1 << 200) - 1], 1, True) == (2 * 2 * 96 + 32 + 3 * 96, cs.G2_MADD_OPS)
+    assert cs.gen_cost([hm.R + 2], 1, False) == (2 * 48 + 32 + 3 * 48, 0)
     assert cs.gen_chain([0x0102]) == {"doubles": 1, "madds": 1, "adds": 6}
     assert cs.gen_chain(_seeded_scalars(4, 64)) == {"doubles": 3, "madds": 3, "adds": 6}
